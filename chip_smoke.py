@@ -8,15 +8,26 @@ JAX or the JAX package. Phases, one JSON line each; any failure exits
 non-zero at once:
 
 1. device   — card name and power limit, TF32 off for the reference math;
-2. build    — compiles every kernel of the serving path from ``csrc/``;
+2. build    — compiles every kernel source of the serving and training
+              paths from ``csrc/`` (one nvcc per source, all at once);
 3. kernel   — the flash forward kernel against its plain PyTorch version
               on the card, bf16 (|diff| <= 2e-2) and f32 (|diff| <= 1e-4),
-              with NaN rows identical, over the masking cases; then its
-              time beside its bound, the plain version's and SDPA's;
-4. model    — a flagship-width model's prefill logits on the card (f32,
+              with NaN rows identical, over the masking cases and the
+              training shape (B=8, S=1024, q/k/v strided views of a fused
+              projection, as the model passes them); then its time beside
+              its bound, the plain version's and SDPA's;
+4. bwd_kernel — the dK/dV and dQ kernels against the plain backward
+              over the same cases (dO a strided view at the training
+              shape) plus an lse cotangent and B > 1 with GQA, f32
+              (|diff| <= 1e-4 * max(1, max|ref|)) and bf16 (every 64-row
+              tile's ||diff|| / ||ref|| <= 1e-2), gradients finite where
+              rows are NaN; then their times at the flagship training
+              shape beside their bounds, the plain version's and SDPA's
+              backward (a yardstick only);
+5. model    — a flagship-width model's prefill logits on the card (f32,
               flash kernel) against the same weights on the CPU (plain
               path), |diff| <= 2e-3;
-5. serve    — the flagship-width TransformerLM (vocab 32000, dim 768,
+6. serve    — the flagship-width TransformerLM (vocab 32000, dim 768,
               12 layers, 12 heads, learned positions, max_seq 2048, bf16,
               random weights from a seed) behind ``InferenceEngine``:
               6 requests over prompt lengths 100-1900, half greedy, half
@@ -24,8 +35,22 @@ non-zero at once:
               flash kernel must have launched 12 times per admit whose
               bucket reaches DPX_FLASH_MIN_SEQ, and a greedy stream must
               equal standalone ``generate()``;
-6. breakdown — one admit prefill per bucket and one 4-slot decode step,
-              host time and the device-busy share from torch.profiler.
+7. breakdown — one admit prefill per bucket and one 4-slot decode step,
+              host time and the device-busy share from torch.profiler;
+8. train_check — one ``make_train_step`` step of a 2-layer flagship-width
+              f32 model on the card (kernels) against the same weights on
+              the CPU (plain path): loss, every gradient, the params after
+              one adamw step;
+9. train    — the FLAGSHIP train step (vocab 32000, dim 768, 12 layers,
+              12 heads, learned positions, seq 1024, batch 8, bf16,
+              adamw(3e-4), plain cross-entropy, random weights from a
+              seed) on one fixed token batch: 2 warm-up and 10 timed
+              steps, step time, tokens/s and MFU, 12/12/12 kernel launches
+              per step, falling losses within 2% per step of dense
+              attention, and ``remat="full"`` (24 forward launches per
+              step, the same first loss);
+10. train_breakdown — one step's device time by kernel class and its
+              device-idle share.
 
 Then the ``kernels`` line, the nvidia-smi line and, last, the result line
 ``{"ok": true, "device": {...}}``.
@@ -38,19 +63,56 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-REPLACES = "distributed_pytorch_tpu/ops/flash_attention.py:166"
-SOURCE = "distributed_pytorch_tpu_torch/csrc/flash_attention_fwd.cu"
+JAX_FLASH = "distributed_pytorch_tpu/ops/flash_attention.py"
+CSRC = "distributed_pytorch_tpu_torch/csrc/"
+# kernel -> (source in the repo, the TPU kernel it replaces)
+KERNELS = {
+    "flash_attention_fwd": (CSRC + "flash_attention_fwd.cu",
+                            JAX_FLASH + ":166"),
+    "flash_attention_bwd_dkv": (CSRC + "flash_attention_bwd.cu",
+                                JAX_FLASH + ":326"),
+    "flash_attention_bwd_dq": (CSRC + "flash_attention_bwd.cu",
+                               JAX_FLASH + ":371"),
+}
 # dense bf16 tensor-core peak (FLOP/s) and HBM rate (B/s) by card name,
 # from NVIDIA's data sheets; the SXM part is the default
 PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H100 NVL": (835e12, 3.9e12),
          "H200": (989e12, 4.8e12), "H100": (989e12, 3.35e12)}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# backward, bf16: ||got - ref|| / ||ref|| of every 64-row tile (see
+# tile_rel_err); f32 keeps TOL scaled by max(1, max|ref|)
+BWD_TILE_TOL = 1e-2
 FLAGSHIP = dict(vocab=32000, dim=768, n_layers=12, n_heads=12,
                 max_seq=2048, pos="learned")
+# benchmarks/mfu_transformer.py:72 FLAGSHIP: the serving width at seq 1024
+TRAIN = dict(FLAGSHIP, max_seq=1024)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 1024, 3e-4
+WARM_STEPS, TIMED_STEPS, DENSE_STEPS, REMAT_STEPS = 2, 10, 5, 2
 PROMPT_LENS = (100, 300, 700, 1024, 1500, 1900)
+# the FLAGSHIP train step's attention, with q/k/v and dO laid out as the
+# model hands them over (see draw_inputs); checked in both directions
+TRAIN_CASE = ("train_b8_qkv_views", TRAIN_BATCH, 12, 12, TRAIN_SEQ,
+              TRAIN_SEQ, 64, dict(causal=True))
+# (name, b, h, h_kv, s_q, s_k, d, kwargs): the masking cases of both the
+# forward and the backward checks
+MASK_CASES = [
+    ("flagship", 1, 12, 12, 2048, 2048, 64, dict(causal=True)),
+    ("ragged_s1000", 1, 12, 12, 1000, 1000, 64, dict(causal=True)),
+    ("gqa_h12_hkv4", 1, 12, 4, 1024, 1024, 64, dict(causal=True)),
+    ("d128", 1, 8, 8, 1024, 1024, 128, dict(causal=True)),
+    ("sq256_sk1024", 1, 12, 12, 256, 1024, 64, dict(causal=True)),
+    ("sq_gt_sk_nan_rows", 1, 12, 12, 512, 256, 64, dict(causal=True)),
+    ("window256", 1, 12, 12, 2048, 2048, 64, dict(causal=True,
+                                                  window=256)),
+    ("causal_offset1", 1, 12, 12, 1024, 1024, 64,
+     dict(causal=True, causal_offset=1)),
+    ("diag_offset512", 1, 12, 12, 1024, 1024, 64,
+     dict(causal=True, diag_offset=512)),
+]
 GREEDY = (0, 3, 4)            # indices of the greedy requests
 COMPARE = 3                   # the greedy request held to generate()
 MAX_NEW = 32
@@ -97,43 +159,89 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def visible_pairs(s_q, s_k, causal=True):
+    """(query, key) pairs a causal (or full) attention row set sees."""
+    if not causal:
+        return s_q * s_k
+    off = s_k - s_q
+    return sum(max(0, min(s_k, r + off + 1)) for r in range(s_q))
+
+
 def flash_cost(b, h, h_kv, s_q, s_k, d, dtype_bytes, causal=True):
     """(FLOPs, bytes) the forward needs for these inputs: 4*D FLOPs per
     visible (query, key) pair; q/k/v read once, O and lse written once."""
-    if causal:
-        off = s_k - s_q
-        pairs = sum(max(0, min(s_k, r + off + 1)) for r in range(s_q))
-    else:
-        pairs = s_q * s_k
-    flops = 4.0 * d * pairs * b * h
+    flops = 4.0 * d * visible_pairs(s_q, s_k, causal) * b * h
     nbytes = (dtype_bytes * d * (b * h * s_q * 2 + b * h_kv * s_k * 2)
               + 4 * b * h * s_q)
     return flops, nbytes
 
 
+def flash_bwd_cost(b, h, h_kv, s_q, s_k, d, dtype_bytes, causal=True):
+    """(FLOPs, bytes) per backward function for these inputs, each input
+    read once and each output written once:
+
+    - ``dkv``: q.k^T, p^T.dO, dO.v^T, ds^T.q = 8*D FLOPs per visible pair;
+      reads q, dO, k, v, lse, delta; writes dK, dV;
+    - ``dq``: q.k^T, dO.v^T, ds.k = 6*D; reads the same; writes dQ;
+    - ``both``: the whole backward, 14*D; reads q, k, v, O, dO, lse;
+      writes dQ, dK, dV."""
+    pairs = visible_pairs(s_q, s_k, causal) * b * h
+    qsz = dtype_bytes * d * b * h * s_q        # one (B, H, Sq, D) tensor
+    kvsz = dtype_bytes * d * b * h_kv * s_k    # one (B, Hkv, Sk, D) tensor
+    row = 4 * b * h * s_q                      # one f32 (B, H, Sq) row term
+    return {"dkv": (8.0 * d * pairs, 2 * qsz + 2 * kvsz + 2 * row + 2 * kvsz),
+            "dq": (6.0 * d * pairs, 2 * qsz + 2 * kvsz + 2 * row + qsz),
+            "both": (14.0 * d * pairs,
+                     3 * qsz + 2 * kvsz + row + qsz + 2 * kvsz)}
+
+
+def bound(torch, flops, nbytes):
+    """(bound_ms, bound_by): the larger of FLOPs over the bf16 dense peak
+    and bytes over the memory rate of this card."""
+    peak_flops, peak_bw = peaks(torch.cuda.get_device_name(0))
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def draw_inputs(rng, name, b, h, h_kv, s_q, s_k, d, with_do):
+    """Seeded float32 draws of q, k, v (and dO). The TRAIN_CASE draws
+    them as the model makes them: one fused qkv projection output
+    (B, S, (H + 2 Hkv) D) and the out-projection's input gradient
+    (B, S, H, D); every other case draws contiguous (B, heads, S, D)."""
+    if name == TRAIN_CASE[0]:
+        shapes = [(b, s_q, (h + 2 * h_kv) * d)] + [(b, s_q, h, d)] * with_do
+    else:
+        shapes = ([(b, h, s_q, d)] + [(b, h_kv, s_k, d)] * 2
+                  + [(b, h, s_q, d)] * with_do)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def on_card(torch, base, dtype, device, h, h_kv, d):
+    """q, k, v (and dO) of draw_inputs' arrays in ``dtype`` on the card.
+    From a fused projection, q/k/v are its (B, heads, S, D) views, split
+    and head-transposed as ``nn/attention.py`` does it, and dO is the
+    same view of its (B, S, H, D) gradient, as autograd hands dO to the
+    backward: none of them contiguous."""
+    ts = [torch.from_numpy(x).to(device, dtype) for x in base]
+    if ts[0].dim() == 4:
+        return ts
+    b, s = ts[0].shape[:2]
+    qkv = [t.reshape(b, s, -1, d).transpose(1, 2) for t in torch.split(
+        ts[0], [h * d, h_kv * d, h_kv * d], dim=-1)]
+    out = qkv + [t.transpose(1, 2) for t in ts[1:]]
+    if any(t.is_contiguous() for t in out):
+        fail("the train case's q/k/v/dO views came out contiguous")
+    return out
+
+
 def phase_kernel(torch, tflash, device):
-    cases = [
-        ("flagship", 1, 12, 12, 2048, 2048, 64, dict(causal=True)),
-        ("ragged_s1000", 1, 12, 12, 1000, 1000, 64, dict(causal=True)),
-        ("gqa_h12_hkv4", 1, 12, 4, 1024, 1024, 64, dict(causal=True)),
-        ("d128", 1, 8, 8, 1024, 1024, 128, dict(causal=True)),
-        ("sq256_sk1024", 1, 12, 12, 256, 1024, 64, dict(causal=True)),
-        ("sq_gt_sk_nan_rows", 1, 12, 12, 512, 256, 64, dict(causal=True)),
-        ("window256", 1, 12, 12, 2048, 2048, 64, dict(causal=True,
-                                                      window=256)),
-        ("causal_offset1", 1, 12, 12, 1024, 1024, 64,
-         dict(causal=True, causal_offset=1)),
-        ("diag_offset512", 1, 12, 12, 1024, 1024, 64,
-         dict(causal=True, diag_offset=512)),
-    ]
     rng = np.random.default_rng(0)
     worst = {}
-    for name, b, h, h_kv, s_q, s_k, d, kw in cases:
-        base = [rng.standard_normal(shape).astype(np.float32)
-                for shape in ((b, h, s_q, d), (b, h_kv, s_k, d),
-                              (b, h_kv, s_k, d))]
+    for name, b, h, h_kv, s_q, s_k, d, kw in MASK_CASES + [TRAIN_CASE]:
+        base = draw_inputs(rng, name, b, h, h_kv, s_q, s_k, d, False)
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = (torch.from_numpy(x).to(device, dtype) for x in base)
+            q, k, v = on_card(torch, base, dtype, device, h, h_kv, d)
             o, lse = tflash.flash_attention_fwd_cuda(q, k, v, **kw)
             o_ref, lse_ref = tflash.flash_attention_fwd_reference(
                 q, k, v, **kw)
@@ -146,14 +254,12 @@ def phase_kernel(torch, tflash, device):
                       (lse - lse_ref).abs().max().item())
             tname = str(dtype).split(".")[-1]
             emit(phase="kernel_check", case=name, dtype=tname,
-                 shape=[b, h, h_kv, s_q, s_k, d], nan_rows=int(
-                     nan[..., 0].sum().item()), max_abs_err=err,
+                 shape=[b, h, h_kv, s_q, s_k, d], q_stride=list(q.stride()),
+                 nan_rows=int(nan[..., 0].sum().item()), max_abs_err=err,
                  tol=TOL[tname], **kw)
             if not err <= TOL[tname]:
                 fail(f"kernel {name} {tname}: |diff| {err} > {TOL[tname]}")
             worst[tname] = max(worst.get(tname, 0.0), err)
-    if not any(c[0] == "sq_gt_sk_nan_rows" for c in cases):
-        fail("the NaN-row case is missing")
 
     # time at the flagship prefill shape the serving path gives it
     b, h, s, d = 1, 12, 2048, 64
@@ -167,15 +273,130 @@ def phase_kernel(torch, tflash, device):
                          .scaled_dot_product_attention(q, k, v,
                                                        is_causal=True), 20)
     flops, nbytes = flash_cost(b, h, h, s, s, d, 2)
-    peak_flops, peak_bw = peaks(torch.cuda.get_device_name(0))
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    bound_ms, bound_by = bound(torch, flops, nbytes)
     timing = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                  bound_ms=max(t_ops, t_bytes),
-                  bound_by="operations" if t_ops >= t_bytes else "bytes",
+                  bound_ms=bound_ms, bound_by=bound_by,
                   flops=flops, bytes=nbytes,
                   shape=[b, h, h, s, s, d], dtype="bfloat16",
                   tflops_per_s=flops / ms / 1e9)
     emit(phase="kernel_time", **timing)
+    return worst, timing
+
+
+def tile_rel_err(torch, got, ref, block=64) -> float:
+    """Largest ||got - ref|| / ||ref|| over the 64-row sequence tiles of
+    every (batch, head) of a (B, heads, S, D) gradient. A zeroed or
+    garbled tile, row or key then counts against its own size, not
+    against the tensor's largest element; a tile whose reference is
+    exactly zero (rows or keys that nothing sees) must come out zero."""
+    diff, ref = got.float() - ref.float(), ref.float()
+    pad = (-ref.shape[2]) % block
+    if pad:
+        diff, ref = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                     for t in (diff, ref))
+    b, n, _, d = ref.shape
+    dn, rn = (t.reshape(b, n, -1, block * d).norm(dim=-1)
+              for t in (diff, ref))
+    ratio = torch.nan_to_num(dn / rn, nan=0.0, posinf=float("inf"))
+    return ratio.max().item()
+
+
+def phase_bwd_kernel(torch, tflash, device):
+    """The dK/dV and dQ kernels against the plain backward on the card,
+    then their times at the flagship training shape.
+
+    Limits: f32 |diff| <= 1e-4 * max(1, max|ref|) (the same f32 math in
+    another summation order); bf16 ``tile_rel_err`` <= BWD_TILE_TOL (p
+    and ds are rounded to bf16 before their products on both sides, so
+    one rounding can differ, and each gradient is rounded to bf16 once:
+    a few 1e-3 of each tile's norm)."""
+    cases = [(name, b, h, h_kv, s_q, s_k, d, kw, False)
+             for name, b, h, h_kv, s_q, s_k, d, kw in MASK_CASES]
+    cases += [("g_lse", 1, 12, 12, 1024, 1024, 64, dict(causal=True), True),
+              ("b2_gqa_h12_hkv4", 2, 12, 4, 1024, 1024, 64,
+               dict(causal=True), False), TRAIN_CASE + (False,)]
+    rng = np.random.default_rng(4)
+    worst = {}
+    for name, b, h, h_kv, s_q, s_k, d, kw, with_lse in cases:
+        base = draw_inputs(rng, name, b, h, h_kv, s_q, s_k, d, True)
+        g_base = rng.standard_normal((b, h, s_q)).astype(np.float32)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = on_card(torch, base, dtype, device, h, h_kv, d)
+            o, lse = tflash.flash_attention_fwd_reference(q, k, v, **kw)
+            # rows with no visible key (NaN O) get zero cotangents, as a
+            # caller weighting them to zero gives them
+            nan_rows = torch.isnan(o).any(dim=-1)
+            if bool(nan_rows.any()):
+                do = do.masked_fill(nan_rows[..., None], 0)
+            g_lse = (torch.from_numpy(g_base).to(device).masked_fill(
+                nan_rows, 0) if with_lse else None)
+            got = tflash.flash_attention_bwd_cuda(q, k, v, o, lse, do, g_lse,
+                                                  **kw)
+            want = tflash.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                        g_lse, **kw)
+            torch.cuda.synchronize()
+            tname = str(dtype).split(".")[-1]
+            errs, tiles, tols = {}, {}, {}
+            for label, g, w in zip(("dq", "dk", "dv"), got, want):
+                if not bool(torch.isfinite(g).all()):
+                    fail(f"bwd kernel {name} {tname}: {label} not finite")
+                errs[label] = (g.float() - w.float()).abs().max().item()
+                tiles[label] = tile_rel_err(torch, g, w)
+                tols[label] = (BWD_TILE_TOL if tname == "bfloat16" else
+                               TOL[tname] * max(1.0,
+                                                w.float().abs().max().item()))
+            emit(phase="bwd_kernel_check", case=name, dtype=tname,
+                 shape=[b, h, h_kv, s_q, s_k, d], g_lse=with_lse,
+                 q_stride=list(q.stride()), do_stride=list(do.stride()),
+                 nan_rows=int(nan_rows.sum().item()), max_abs_err=errs,
+                 tile_rel_err=tiles,
+                 limit=("tile_rel_err" if tname == "bfloat16"
+                        else "max_abs_err"), tol=tols, **kw)
+            checked = tiles if tname == "bfloat16" else errs
+            for label in checked:
+                if not checked[label] <= tols[label]:
+                    fail(f"bwd kernel {name} {tname} {label}: "
+                         f"{checked[label]} > {tols[label]}")
+            for kern, labels in (("dkv", ("dk", "dv")), ("dq", ("dq",))):
+                key = (kern, tname)
+                worst[key] = max([worst.get(key, 0.0)]
+                                 + [errs[x] for x in labels])
+
+    # time at the flagship training shape
+    b, h, s, d = TRAIN_BATCH, TRAIN["n_heads"], TRAIN_SEQ, \
+        TRAIN["dim"] // TRAIN["n_heads"]
+    q, k, v, do = (torch.randn(b, h, s, d, device=device,
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = tflash.flash_attention_fwd_cuda(q, k, v, causal=True)
+    run = tflash.FlashBwdLaunch(q, k, v, o, lse, do, causal=True)
+    timing = dict(
+        dkv_ms=cuda_ms(run.launch_dkv, 20), dq_ms=cuda_ms(run.launch_dq, 20),
+        both_ms=cuda_ms(lambda: tflash.flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal=True), 20),
+        fwd_ms=cuda_ms(lambda: tflash.flash_attention_fwd_cuda(
+            q, k, v, causal=True), 20),
+        plain_ms=cuda_ms(lambda: tflash.flash_attention_bwd_reference(
+            q, k, v, o, lse, do, causal=True), 3))
+    # yardstick only: SDPA's backward = its forward + backward minus its
+    # forward (one call computes dQ, dK and dV together)
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_fwd_ms = cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=True), 20)
+    sdpa_fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        sdpa(qs, ks, vs, is_causal=True), (qs, ks, vs), do), 20)
+    timing.update(sdpa_fwd_ms=sdpa_fwd_ms, sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms,
+                  library_bwd_ms=sdpa_fwd_bwd_ms - sdpa_fwd_ms)
+    costs = flash_bwd_cost(b, h, h, s, s, d, 2)
+    costs["fwd"] = flash_cost(b, h, h, s, s, d, 2)
+    for kern, (flops, nbytes) in costs.items():
+        bound_ms, bound_by = bound(torch, flops, nbytes)
+        timing[f"{kern}_flops"] = flops
+        timing[f"{kern}_bytes"] = nbytes
+        timing[f"{kern}_bound_ms"] = bound_ms
+        timing[f"{kern}_bound_by"] = bound_by
+        timing[f"{kern}_tflops_per_s"] = flops / timing[f"{kern}_ms"] / 1e9
+    emit(phase="bwd_kernel_time", shape=[b, h, h, s, s, d], dtype="bfloat16",
+         causal=True, **timing)
     return worst, timing
 
 
@@ -263,20 +484,35 @@ def phase_serve(torch, port, tflash, device):
          tpot_ms_p50=agg["tpot_ms_p50"],
          tokens_per_sec=agg["tokens_per_sec"], wall_s=wall,
          decode_steps=st["decode_steps"])
-    return launches, model, eng.pool
+    return model, eng.pool
+
+
+def kernel_times_us(torch, fn):
+    """{kernel name: device microseconds} of the kernels ``fn`` runs
+    (torch.profiler), and the host milliseconds of the profiled call.
+
+    Only the device-side kernel events count: the aten op that launched
+    a kernel also reports that kernel's time as its own self device
+    time, so a sum over every event counts each aten-launched kernel
+    twice (and a ctypes-launched one once)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    times = {e.key: e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)}
+    return times, wall_ms
 
 
 def device_busy_ms(torch, fn) -> float:
     """Device time of ``fn`` summed over its kernels (torch.profiler),
     or None where the profiler reports none."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0))
-                for e in prof.key_averages())
+    total = sum(kernel_times_us(torch, fn)[0].values())
     return total / 1e3 if total else None
 
 
@@ -328,6 +564,222 @@ def phase_breakdown(torch, model, pool, kernel_ms):
     emit(phase="breakdown", **out)
 
 
+def model_flops_per_token(dim, n_layers, vocab, seq, mlp_ratio=4,
+                          causal=True):
+    """Analytic matmul FLOPs per token of one forward (a copy of
+    ``benchmarks/mfu_transformer.py:model_flops_per_token``, which the
+    port cannot import): per layer qkv + out-proj + MLP, attention's two
+    products at half the S^2 term when causal, and the vocab projection.
+    A train step counts 3x (backward = 2x forward)."""
+    per_layer = (8 + 4 * mlp_ratio) * dim * dim
+    attn = 4 * seq * dim * (0.5 if causal else 1.0)
+    return n_layers * (per_layer + attn) + 2 * dim * vocab
+
+
+def lm_loss(model, tokens):
+    """Next-token cross-entropy of ``tokens`` (B, S + 1), the loss of
+    ``benchmarks/mfu_transformer.py`` without fused CE."""
+    from distributed_pytorch_tpu_torch.ops.losses import cross_entropy
+    return cross_entropy(model(tokens[:, :-1]), tokens[:, 1:]), {}
+
+
+def train_tokens(torch, seed, batch, device):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, TRAIN["vocab"], (batch, TRAIN_SEQ + 1))).to(device)
+
+
+GRAD_TOL = 1e-3     # x max|grad| of each tensor, f32 card vs CPU
+
+
+def phase_train_check(torch, port, tflash, device):
+    """One make_train_step step of a 2-layer flagship-width f32 model on
+    the card (kernels) and on the CPU (plain path), same weights/batch.
+
+    Tolerances: loss |diff| <= 1e-5 * loss; each gradient |diff| <=
+    GRAD_TOL * max|grad| of its tensor (f32, summation order only). After
+    one adamw step an element moves by ~lr * sign(grad), so where the
+    gradient is rounding noise (below 1e-3 * max|grad|, e.g. the key
+    bias, whose gradient is analytically zero) the two sides may step
+    apart by up to 2 * lr; elsewhere the params agree to 1e-2 * lr."""
+    from distributed_pytorch_tpu_torch.optim import adamw
+    from distributed_pytorch_tpu_torch.parallel import make_train_step
+    kw = dict(TRAIN, n_layers=2, dtype=torch.float32)
+    attn_fn = tflash.make_flash_attn_fn()
+    gpu = port.TransformerLM(device=device, attn_fn=attn_fn,
+                             generator=torch.Generator(device=device)
+                             .manual_seed(5), **kw)
+    cpu = port.TransformerLM(device="cpu", attn_fn=attn_fn, **kw)
+    cpu.load_state_dict(gpu.state_dict())
+    tokens = train_tokens(torch, 5, 1, "cpu")
+    tflash.reset_launch_counts()
+    losses = {}
+    for label, model in (("gpu", gpu), ("cpu", cpu)):
+        opt = adamw(TRAIN_LR)
+        out = make_train_step(lm_loss, opt)(
+            model, opt.init(model.parameters()), tokens.to(model.device))
+        losses[label] = out.loss.item()
+    launches = dict(tflash.LAUNCHES)
+    if any(n != kw["n_layers"] for n in launches.values()):
+        fail(f"train_check: kernel launches {launches}, expected "
+             f"{kw['n_layers']} each")
+    if not abs(losses["gpu"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"]):
+        fail(f"train_check: loss {losses['gpu']} vs CPU {losses['cpu']}")
+    grad_ratio, param_err, noisy, noisy_err = 0.0, 0.0, 0, 0.0
+    for (name, pg), (_, pc) in zip(gpu.named_parameters(),
+                                   cpu.named_parameters()):
+        gg, gc = pg.grad.float().cpu(), pc.grad
+        scale = gc.abs().max().item()
+        ratio = (gg - gc).abs().max().item() / scale
+        if not ratio <= GRAD_TOL:
+            fail(f"train_check: grad {name} |diff| / max|grad| = {ratio}")
+        grad_ratio = max(grad_ratio, ratio)
+        dp = (pg.detach().float().cpu() - pc.detach()).abs()
+        clear = gc.abs() > 1e-3 * scale
+        param_err = max(param_err, dp[clear].max().item())
+        far = (dp > 1e-2 * TRAIN_LR) & ~clear
+        noisy += int(far.sum().item())
+        noisy_err = max(noisy_err, dp.max().item())
+    emit(phase="train_check", layers=kw["n_layers"], seq=TRAIN_SEQ,
+         dtype="float32", loss_gpu=losses["gpu"], loss_cpu=losses["cpu"],
+         max_grad_err_over_max_grad=grad_ratio, grad_tol=GRAD_TOL,
+         max_param_err=param_err, param_tol=1e-2 * TRAIN_LR,
+         noise_grad_elements_apart=noisy, max_param_err_noise=noisy_err,
+         launches=launches)
+    if not param_err <= 1e-2 * TRAIN_LR:
+        fail(f"train_check: params after one step differ by {param_err}")
+    if not noisy_err <= 2 * TRAIN_LR * 1.01:
+        fail(f"train_check: a param moved {noisy_err} apart (> 2 lr)")
+
+
+def phase_train(torch, port, tflash, device):
+    """The FLAGSHIP train step through make_train_step; returns what the
+    breakdown and the kernels line read."""
+    from distributed_pytorch_tpu_torch.optim import adamw
+    from distributed_pytorch_tpu_torch.parallel import make_train_step
+
+    def build(attn_fn, remat=False, seed=None):
+        gen = (torch.Generator(device=device).manual_seed(seed)
+               if seed is not None else None)
+        return port.TransformerLM(dtype=torch.bfloat16, device=device,
+                                  attn_fn=attn_fn, remat=remat,
+                                  generator=gen, **TRAIN)
+
+    def trainer(model):
+        opt = adamw(TRAIN_LR)
+        step = make_train_step(lm_loss, opt)
+        state = [opt.init(model.parameters())]
+
+        def run():
+            out = step(model, state[0], tokens)
+            state[0] = out.opt_state
+            return out.loss
+        return run
+
+    tokens = train_tokens(torch, 6, TRAIN_BATCH, device)
+    model = build(tflash.make_flash_attn_fn(), seed=0)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    run = trainer(model)
+
+    tflash.reset_launch_counts()
+    losses = [run() for _ in range(WARM_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [run() for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TIMED_STEPS
+    launches = dict(tflash.LAUNCHES)
+    losses = torch.cat(losses).tolist()
+    n_steps = WARM_STEPS + TIMED_STEPS
+    per_step = {k: v / n_steps for k, v in launches.items()}
+    if any(n != TRAIN["n_layers"] for n in per_step.values()):
+        fail(f"train: launches per step {per_step}, expected "
+             f"{TRAIN['n_layers']} of each kernel")
+    if not all(np.isfinite(losses)):
+        fail(f"train: non-finite losses {losses}")
+    if not losses[-1] < losses[WARM_STEPS]:
+        fail(f"train: loss did not fall over the timed steps: {losses}")
+
+    dense = build(None)
+    dense.load_state_dict(init)
+    run_dense = trainer(dense)
+    dense_losses = torch.cat([run_dense() for _ in range(DENSE_STEPS)]
+                             ).tolist()
+    del dense, run_dense
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, dense_losses)]
+    if not max(rel) <= 0.02:
+        fail(f"train: flash losses {losses[:DENSE_STEPS]} vs dense "
+             f"{dense_losses} differ by more than 2% per step")
+
+    remat = build(tflash.make_flash_attn_fn(), remat="full")
+    remat.load_state_dict(init)
+    run_remat = trainer(remat)
+    tflash.reset_launch_counts()
+    remat_losses = torch.cat([run_remat() for _ in range(REMAT_STEPS)]
+                             ).tolist()
+    remat_per_step = {k: v / REMAT_STEPS for k, v in tflash.LAUNCHES.items()}
+    del remat, run_remat
+    torch.cuda.empty_cache()
+    if remat_per_step != {"flash_attention_fwd": 2 * TRAIN["n_layers"],
+                          "flash_attention_bwd_dkv": TRAIN["n_layers"],
+                          "flash_attention_bwd_dq": TRAIN["n_layers"]}:
+        fail(f"train: remat='full' launches per step {remat_per_step}")
+    remat_diff = abs(remat_losses[0] - losses[0])
+    if not remat_diff <= 1e-6 * abs(losses[0]):
+        fail(f"train: remat='full' first loss {remat_losses[0]} vs "
+             f"{losses[0]}")
+
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    flops = 3 * model_flops_per_token(TRAIN["dim"], TRAIN["n_layers"],
+                                      TRAIN["vocab"], TRAIN_SEQ) \
+        * tokens_per_step
+    peak_flops, _ = peaks(torch.cuda.get_device_name(0))
+    emit(phase="train", card=torch.cuda.get_device_name(0),
+         config=dict(TRAIN, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     dtype="bfloat16", optimizer=f"adamw({TRAIN_LR})",
+                     remat="none", loss="cross_entropy"),
+         warmup_steps=WARM_STEPS, timed_steps=TIMED_STEPS,
+         step_ms=step_s * 1e3, tokens_per_sec=tokens_per_step / step_s,
+         flops_per_step=flops, mfu=flops / step_s / peak_flops,
+         peak_flops=peak_flops, launches=launches,
+         launches_per_step=per_step, losses=losses,
+         dense_losses=dense_losses, max_rel_loss_diff_vs_dense=max(rel),
+         remat_full_losses=remat_losses,
+         remat_full_launches_per_step=remat_per_step,
+         remat_full_first_loss_diff=remat_diff,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return run, step_s * 1e3, launches
+
+
+KERNEL_CLASSES = (("flash_fwd", ("flash_fwd_kernel",)),
+                  ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+                  ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+                  ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")))
+
+
+def phase_train_breakdown(torch, run_step, step_ms):
+    """One FLAGSHIP step's device time by kernel class (torch.profiler)
+    and the share of the unprofiled step the device sat idle."""
+    times, wall_ms = kernel_times_us(torch, run_step)
+    by_class = {name: 0.0 for name, _ in KERNEL_CLASSES}
+    by_class["other"] = 0.0
+    other = {}
+    for name, us in times.items():
+        low = name.lower()
+        cls = next((c for c, keys in KERNEL_CLASSES
+                    if any(k in low for k in keys)), "other")
+        by_class[cls] += us / 1e3
+        if cls == "other":
+            other[name] = us / 1e3
+    busy = sum(by_class.values())
+    if not busy > 0:
+        fail("train_breakdown: the profiler reported no device time")
+    emit(phase="train_breakdown", device_ms=by_class,
+         share={k: v / busy for k, v in by_class.items()},
+         device_busy_ms=busy, profiled_wall_ms=wall_ms, step_ms=step_ms,
+         device_idle_share=max(0.0, 1 - busy / step_ms),
+         top_other_ms=dict(sorted(other.items(), key=lambda kv: -kv[1])[:6]))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -353,26 +805,54 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    report = _build.build(tflash.KERNEL_SOURCE)
-    _build.load(tflash.KERNEL_SOURCE)
-    emit(phase="build", source=SOURCE, build_s=time.perf_counter() - t0,
-         ptxas=[ln.split("info    :")[-1].strip()
-                for ln in report.splitlines()
-                if "registers" in ln or "spill" in ln])
+    sources = (tflash.KERNEL_SOURCE, tflash.BWD_KERNEL_SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        reports = list(pool.map(_build.build, sources))
+    for src in sources:
+        _build.load(src)
+    emit(phase="build", sources=sorted({v[0] for v in KERNELS.values()}),
+         build_s=time.perf_counter() - t0,
+         ptxas={src: [ln.split("info    :")[-1].strip()
+                      for ln in report.splitlines()
+                      if "registers" in ln or "spill" in ln]
+                for src, report in zip(sources, reports)})
 
     worst, timing = phase_kernel(torch, tflash, device)
+    bwd_worst, bwd_timing = phase_bwd_kernel(torch, tflash, device)
     phase_model_check(torch, port.TransformerLM, tflash.make_flash_attn_fn,
                       device)
-    launches, model, pool = phase_serve(torch, port, tflash, device)
+    model, pool = phase_serve(torch, port, tflash, device)
     phase_breakdown(torch, model, pool, timing["ms"])
+    del model, pool
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": worst["bfloat16"], "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]}), flush=True)
+    # training runs PyTorch's default bf16 GEMM reduction (the serving
+    # phases turned it off so batched and single-row decode round alike)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    phase_train_check(torch, port, tflash, device)
+    run_step, step_ms, launches = phase_train(torch, port, tflash, device)
+    phase_train_breakdown(torch, run_step, step_ms)
+
+    rows = {"flash_attention_fwd": dict(
+        max_abs_err=worst["bfloat16"], ms=timing["ms"],
+        plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
+        bound_by=timing["bound_by"], library_ms=timing["library_ms"])}
+    # the plain version and SDPA compute dQ, dK and dV in one call: their
+    # times stand beside both kernels together (both_ms), not one alone
+    for name, kern in (("flash_attention_bwd_dkv", "dkv"),
+                       ("flash_attention_bwd_dq", "dq")):
+        rows[name] = dict(
+            max_abs_err=bwd_worst[(kern, "bfloat16")],
+            ms=bwd_timing[f"{kern}_ms"], plain_ms=bwd_timing["plain_ms"],
+            bound_ms=bwd_timing[f"{kern}_bound_ms"],
+            bound_by=bwd_timing[f"{kern}_bound_by"],
+            library_ms=bwd_timing["library_bwd_ms"],
+            both_ms=bwd_timing["both_ms"],
+            plain_and_library_compute="dq+dk+dv")
+    print(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=KERNELS[name][0],
+             replaces=KERNELS[name][1], launches=launches[name], **row)
+        for name, row in rows.items()]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

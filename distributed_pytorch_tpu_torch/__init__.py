@@ -10,11 +10,12 @@ Entry points run on the card unless the caller passes ``device="cpu"``:
 
 >>> from distributed_pytorch_tpu_torch import TransformerLM, generate
 >>> from distributed_pytorch_tpu_torch.serve import InferenceEngine
+>>> from distributed_pytorch_tpu_torch.parallel import make_train_step
 """
 
-from .convert import from_jax_params
+from .convert import from_jax_params, to_jax_params
 from .models.generate import generate, make_generate_fn
 from .models.transformer import TransformerLM
 
 __all__ = ["TransformerLM", "from_jax_params", "generate",
-           "make_generate_fn"]
+           "make_generate_fn", "to_jax_params"]

@@ -1,4 +1,5 @@
-"""Load a JAX ``TransformerLM`` param tree into the port's modules.
+"""Move ``TransformerLM`` params between the JAX param tree and the
+port's modules: ``from_jax_params`` loads, ``to_jax_params`` reads back.
 
 The JAX package's params are a nested dict/list pytree (what
 ``TransformerLM.init`` returns); pass it with every leaf as a numpy
@@ -68,3 +69,44 @@ def from_jax_params(params_np: Mapping[str, Any],
     if model.head is not None:
         _linear(model.head, params_np["head"])
     return model
+
+
+def _leaf(param: torch.nn.Parameter, grads: bool, transpose: bool = False):
+    t = param.grad if grads else param
+    if t is None:
+        t = torch.zeros_like(param)
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:       # numpy has no bfloat16
+        t = t.to(torch.float32)
+    arr = t.numpy()
+    return np.ascontiguousarray(arr.T) if transpose else arr
+
+
+def to_jax_params(model: TransformerLM, grads: bool = False):
+    """The JAX param tree of ``model`` as numpy arrays: the inverse of
+    :func:`from_jax_params` (Linear W transposed back to (in, out)).
+    With ``grads=True`` the same tree of the parameters' ``.grad``
+    (zeros where a parameter has none); bfloat16 reads as float32."""
+    def linear(mod):
+        out = {"w": _leaf(mod.weight, grads, transpose=True)}
+        if mod.bias is not None:
+            out["b"] = _leaf(mod.bias, grads)
+        return out
+
+    def layer_norm(mod):
+        return {"scale": _leaf(mod.scale, grads),
+                "bias": _leaf(mod.bias, grads)}
+
+    tree = {"tok": {"emb": _leaf(model.tok.weight, grads)},
+            "blocks": [{"ln1": layer_norm(blk.ln1),
+                        "attn": {"qkv": linear(blk.attn.qkv),
+                                 "out": linear(blk.attn.out)},
+                        "ln2": layer_norm(blk.ln2),
+                        "fc1": linear(blk.fc1), "fc2": linear(blk.fc2)}
+                       for blk in model.blocks],
+            "ln_f": layer_norm(model.ln_f)}
+    if model.pos is not None:
+        tree["pos"] = {"emb": _leaf(model.pos.weight, grads)}
+    if model.head is not None:
+        tree["head"] = linear(model.head)
+    return tree

@@ -1,9 +1,9 @@
-"""Decoder-only causal transformer LM (inference forward).
+"""Decoder-only causal transformer LM.
 
 Counterpart of ``distributed_pytorch_tpu/models/transformer.py``: tok +
 pos embed -> N pre-norm blocks -> LN -> vocab projection, with learned /
-rope / no positions, grouped-query attention and tied embeddings.
-Rematerialization is a training knob and waits for the training slice.
+rope / no positions, grouped-query attention, tied embeddings and the
+per-layer rematerialization policies of training (``remat=``).
 
 The model is built on the card unless ``device`` says otherwise; with no
 CUDA device and no explicit device it raises. Weights are drawn from
@@ -13,14 +13,77 @@ loaded from a JAX param tree with ``convert.from_jax_params``.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import functools
+from typing import Callable, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from ..nn.attention import TransformerBlock
 from ..nn.core import Embedding, LayerNorm, Linear
+from ..runtime import env as _env
 from ..runtime.device import DeviceLike, resolve_device
+
+#: Named per-layer rematerialization policies (the JAX package's):
+#: ``none`` saves every activation; ``full`` checkpoints the whole block
+#: (only its input is saved, the block is recomputed in backward);
+#: ``dots_saveable`` saves the outputs of matrix products and recomputes
+#: only the elementwise chain (LN, GELU, softmax).
+REMAT_POLICIES = ("none", "full", "dots_saveable")
+
+# the matrix products whose outputs ``dots_saveable`` keeps (what
+# F.linear and the attention einsums lower to)
+_DOT_OPS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                      torch.ops.aten.bmm.default,
+                      torch.ops.aten.baddbmm.default))
+
+
+def resolve_remat(remat: Union[bool, str, None]) -> str:
+    """Canonical policy name for a ``remat=`` argument: ``False`` ->
+    ``none``, ``True`` -> ``full``, ``None`` -> the ``DPX_REMAT``
+    registry value; a string must name one of :data:`REMAT_POLICIES`."""
+    if remat is None:
+        remat = _env.get("DPX_REMAT")
+    if remat is False:
+        return "none"
+    if remat is True:
+        return "full"
+    if remat not in REMAT_POLICIES:
+        raise ValueError(
+            f"remat must be a bool or one of {'|'.join(REMAT_POLICIES)}, "
+            f"got {remat!r}")
+    return remat
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    if op in _DOT_OPS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def apply_remat_policy(fn: Callable, policy: str) -> Callable:
+    """Wrap a per-layer forward with the named policy: the one place a
+    policy name becomes a ``torch.utils.checkpoint`` call (non-reentrant;
+    ``dots_saveable`` through a selective-checkpoint context). Unknown
+    names raise; bools and ``None`` resolve through
+    :func:`resolve_remat` first."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat policy {policy!r}; choose from "
+            f"{'|'.join(REMAT_POLICIES)}")
+    if policy == "none":
+        return fn
+    extra = {} if policy == "full" else dict(context_fn=functools.partial(
+        _ckpt.create_selective_checkpoint_contexts, _dots_saveable))
+
+    def run(*args, **kwargs):
+        # without autograd there is nothing to save or recompute
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, **extra,
+                                **kwargs)
+    return run
 
 
 class TransformerLM(nn.Module):
@@ -30,12 +93,15 @@ class TransformerLM(nn.Module):
                  n_heads: int = 4, max_seq: int = 512, mlp_ratio: int = 4,
                  n_kv_heads: Optional[int] = None, pos: str = "learned",
                  rope_base: float = 10000.0, tie_embeddings: bool = False,
-                 attn_fn: Optional[Callable] = None, dtype=torch.float32,
+                 attn_fn: Optional[Callable] = None,
+                 remat: Union[bool, str, None] = False, dtype=torch.float32,
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if pos not in ("learned", "rope", "none"):
             raise ValueError(f"pos must be learned|rope|none, got {pos!r}")
+        # bools keep the JAX meaning, None defers to DPX_REMAT
+        self.remat_policy = resolve_remat(remat)
         device = resolve_device(device)
         self.vocab = vocab
         self.dim = dim
@@ -83,12 +149,19 @@ class TransformerLM(nn.Module):
             x = x + self.pos(positions)
         return x
 
-    def forward(self, tokens, positions=None):
-        """tokens (B, S) int -> logits (B, S, vocab)."""
+    def forward(self, tokens, positions=None, return_hidden: bool = False):
+        """tokens (B, S) int -> logits (B, S, vocab); with
+        ``return_hidden`` the post-final-norm hidden states (B, S, dim)
+        instead, skipping the vocab projection. Under autograd each
+        block runs through the model's remat policy."""
         tokens = tokens.to(self.device, torch.long)
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=self.device)
         x = self.embed(tokens, positions)
         for blk in self.blocks:
-            x = blk(x, positions=positions)
-        return self.project_vocab(self.ln_f(x))
+            x = apply_remat_policy(blk, self.remat_policy)(
+                x, positions=positions)
+        x = self.ln_f(x)
+        if return_hidden:
+            return x
+        return self.project_vocab(x)

@@ -79,6 +79,13 @@ register("DPX_FLASH_MIN_SEQ", "int", 1024,
          "attention instead of the CUDA flash kernel (numerics identical "
          "either way).")
 
+register("DPX_REMAT", "str", "none",
+         "Default per-layer remat policy of `models.TransformerLM"
+         "(remat=None)`: `none` (save all activations), `full` "
+         "(recompute each block in backward), or `dots_saveable` "
+         "(save matmul outputs only, recompute elementwise — "
+         "torch.utils.checkpoint with a selective policy).")
+
 # The non-paged serving engine of this slice reads no DPX_SERVE_* knob:
 # the JAX engine's reads are all of paged KV, tenant quotas or
 # speculative decoding, which this slice leaves out (ROADMAP.md).

@@ -9,21 +9,30 @@ non-zero at once:
 
 1. device   — card name and power limit, TF32 off for the reference math;
 2. build    — compiles every kernel source of the serving and training
-              paths from ``csrc/`` (one nvcc per source, all at once);
+              paths from ``csrc/`` (one nvcc per source, all at once),
+              then reads each kernel's registers and spills from ptxas
+              and its HGMMA (wgmma) and UTMALDG (TMA load) instruction
+              counts from ``cuobjdump --dump-sass``; the bf16 forward and
+              dK/dV kernels must show both and spill nothing;
 3. kernel   — the flash forward kernel against its plain PyTorch version
               on the card, bf16 (|diff| <= 2e-2) and f32 (|diff| <= 1e-4),
               with NaN rows identical, over the masking cases and the
               training shape (B=8, S=1024, q/k/v strided views of a fused
-              projection, as the model passes them); then its time beside
-              its bound, the plain version's and SDPA's;
+              projection, as the model passes them); then its time at the
+              serving prefill shape beside its bound, the plain version's
+              and SDPA's;
 4. bwd_kernel — the dK/dV and dQ kernels against the plain backward
               over the same cases (dO a strided view at the training
               shape) plus an lse cotangent and B > 1 with GQA, f32
               (|diff| <= 1e-4 * max(1, max|ref|)) and bf16 (every 64-row
               tile's ||diff|| / ||ref|| <= 1e-2), gradients finite where
-              rows are NaN; then their times at the flagship training
-              shape beside their bounds, the plain version's and SDPA's
-              backward (a yardstick only);
+              rows are NaN; then their times (and the forward's) at the
+              flagship training shape beside their bounds, the plain
+              version's and SDPA's (a yardstick only). Kernel and SDPA
+              times (``ms``) are device time per launch from the
+              profiler's kernel events; ``call_ms`` is CUDA events around
+              back-to-back calls, which the host's time per call (the
+              Python wrapper, descriptor encoding) bounds from below;
 5. model    — a flagship-width model's prefill logits on the card (f32,
               flash kernel) against the same weights on the CPU (plain
               path), |diff| <= 2e-3;
@@ -52,7 +61,9 @@ non-zero at once:
 10. train_breakdown — one step's device time by kernel class and its
               device-idle share.
 
-Then the ``kernels`` line, the nvidia-smi line and, last, the result line
+Then the ``kernels`` line (each kernel's design, ``wgmma+tma`` or
+``scalar_fma``, as its bf16 path runs it; the forward at both shapes),
+the nvidia-smi line and, last, the result line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -60,6 +71,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -118,6 +131,11 @@ COMPARE = 3                   # the greedy request held to generate()
 MAX_NEW = 32
 
 
+# the kernels that must run on the tensor cores from TMA-fed tiles (bf16)
+SM90_KERNELS = ("flash_fwd_kernel_sm90", "flash_bwd_dkv_kernel_sm90")
+SASS_OPS = ("HGMMA", "UTMALDG")
+
+
 def emit(**rec):
     print(json.dumps(rec), flush=True)
 
@@ -135,6 +153,88 @@ def nvidia_smi() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_label(mangled: str) -> str:
+    """``flash_fwd_kernel_sm90<bf16,64>`` from a mangled kernel name."""
+    m = re.search(r"(?<=\d)(flash_[a-z0-9_]*?kernel(?:_sm90)?)"
+                  r"I(f|13__nv_bfloat16)?Li(\d+)E", mangled)
+    if not m:
+        return mangled
+    dtype = {"f": "f32", "13__nv_bfloat16": "bf16", None: "bf16"}[m.group(2)]
+    return f"{m.group(1)}<{dtype},{m.group(3)}>"
+
+
+def ptxas_by_kernel(report: str) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads}} from nvcc's
+    ``-Xptxas -v`` report."""
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            cur = kernel_label(m.group(1))
+            out.setdefault(cur, {})
+        elif cur and "spill stores" in line:
+            n = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+            out[cur].update({f"spill_{k}": int(v) for v, k in n})
+        elif cur and "Used" in line and "registers" in line:
+            out[cur]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                  line).group(1))
+    return out
+
+
+def sass_counts(lib: str) -> dict:
+    """{kernel: {HGMMA: n, UTMALDG: n}} from ``cuobjdump --dump-sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    proc = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"cuobjdump failed on {lib}: {proc.stderr.strip()[:500]}")
+    out, cur = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = kernel_label(m.group(1))
+            out[cur] = {op: 0 for op in SASS_OPS}
+        elif cur:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    out[cur][op] += 1
+    return out
+
+
+def phase_build(_build, tflash):
+    """Build both sources in parallel; report and check each kernel's
+    registers, spills and HGMMA / UTMALDG counts. A library left by an
+    earlier run is built again, so ptxas reports on every kernel."""
+    t0 = time.perf_counter()
+    sources = (tflash.KERNEL_SOURCE, tflash.BWD_KERNEL_SOURCE)
+    for src in sources:
+        _build.library_path(src).unlink(missing_ok=True)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        reports = list(pool.map(_build.build, sources))
+    for src in sources:
+        _build.load(src)
+    build_s = time.perf_counter() - t0
+    kernels = {}
+    for src, report in zip(sources, reports):
+        sass = sass_counts(str(_build.library_path(src)))
+        for name, regs in ptxas_by_kernel(report).items():
+            kernels[name] = dict(source=src, **regs, **sass.get(name, {}))
+    emit(phase="build", sources=sorted({v[0] for v in KERNELS.values()}),
+         build_s=build_s, kernels=kernels)
+    for base in SM90_KERNELS:
+        found = [k for k in kernels if k.startswith(base + "<")]
+        if not found:
+            fail(f"build: no {base} in the ptxas report")
+        for name in found:
+            rec = kernels[name]
+            if any(rec.get(op, 0) == 0 for op in SASS_OPS):
+                fail(f"build: {name} has no HGMMA or no UTMALDG: {rec}")
+            if rec.get("spill_stores", 0) or rec.get("spill_loads", 0):
+                fail(f"build: {name} spills: {rec}")
+    return kernels
 
 
 def peaks(name: str):
@@ -157,6 +257,20 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """Device milliseconds per call of ``fn``: the kernel events of
+    ``iters`` calls (torch.profiler) over ``iters``. Unlike cuda_ms this
+    is not bounded below by the host's time to issue one call, which for
+    a ~50 us kernel behind a Python wrapper can be the larger."""
+    fn()
+    torch.cuda.synchronize()
+    times, _ = kernel_times_us(torch, lambda: [fn() for _ in range(iters)])
+    total = sum(times.values())
+    if not total > 0:
+        fail("the profiler reported no device time")
+    return total / iters / 1e3
 
 
 def visible_pairs(s_q, s_k, causal=True):
@@ -265,16 +379,23 @@ def phase_kernel(torch, tflash, device):
     b, h, s, d = 1, 12, 2048, 64
     q, k, v = (torch.randn(b, h, s, d, device=device, dtype=torch.bfloat16)
                for _ in range(3))
-    ms = cuda_ms(lambda: tflash.flash_attention_fwd_cuda(q, k, v,
-                                                         causal=True), 20)
+    # ms / library_ms: device time per launch (profiler kernel events);
+    # call_ms / library_call_ms: CUDA events around back-to-back calls,
+    # which the host's time per call bounds from below
+    def kern():
+        tflash.flash_attention_fwd_cuda(q, k, v, causal=True)
+
+    def sdpa():
+        torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                         is_causal=True)
+    ms, call_ms = device_ms(torch, kern), cuda_ms(kern, 20)
+    library_ms, library_call_ms = device_ms(torch, sdpa), cuda_ms(sdpa, 20)
     plain_ms = cuda_ms(lambda: tflash.flash_attention_fwd_reference(
         q, k, v, causal=True), 3)
-    library_ms = cuda_ms(lambda: torch.nn.functional
-                         .scaled_dot_product_attention(q, k, v,
-                                                       is_causal=True), 20)
     flops, nbytes = flash_cost(b, h, h, s, s, d, 2)
     bound_ms, bound_by = bound(torch, flops, nbytes)
-    timing = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    timing = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                  library_ms=library_ms, library_call_ms=library_call_ms,
                   bound_ms=bound_ms, bound_by=bound_by,
                   flops=flops, bytes=nbytes,
                   shape=[b, h, h, s, s, d], dtype="bfloat16",
@@ -369,21 +490,26 @@ def phase_bwd_kernel(torch, tflash, device):
                                dtype=torch.bfloat16) for _ in range(4))
     o, lse = tflash.flash_attention_fwd_cuda(q, k, v, causal=True)
     run = tflash.FlashBwdLaunch(q, k, v, o, lse, do, causal=True)
-    timing = dict(
-        dkv_ms=cuda_ms(run.launch_dkv, 20), dq_ms=cuda_ms(run.launch_dq, 20),
-        both_ms=cuda_ms(lambda: tflash.flash_attention_bwd_cuda(
-            q, k, v, o, lse, do, causal=True), 20),
-        fwd_ms=cuda_ms(lambda: tflash.flash_attention_fwd_cuda(
-            q, k, v, causal=True), 20),
-        plain_ms=cuda_ms(lambda: tflash.flash_attention_bwd_reference(
-            q, k, v, o, lse, do, causal=True), 3))
+    # *_ms: device time per launch (profiler); *_call_ms: CUDA events
+    # around back-to-back calls (bounded below by the host's time per call)
+    calls = dict(
+        dkv=run.launch_dkv, dq=run.launch_dq,
+        both=lambda: tflash.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                     causal=True),
+        fwd=lambda: tflash.flash_attention_fwd_cuda(q, k, v, causal=True))
+    timing = {}
+    for kern, fn in calls.items():
+        timing[f"{kern}_ms"] = device_ms(torch, fn)
+        timing[f"{kern}_call_ms"] = cuda_ms(fn, 20)
+    timing["plain_ms"] = cuda_ms(lambda: tflash.flash_attention_bwd_reference(
+        q, k, v, o, lse, do, causal=True), 3)
     # yardstick only: SDPA's backward = its forward + backward minus its
     # forward (one call computes dQ, dK and dV together)
     qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    sdpa_fwd_ms = cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=True), 20)
-    sdpa_fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-        sdpa(qs, ks, vs, is_causal=True), (qs, ks, vs), do), 20)
+    sdpa_fwd_ms = device_ms(torch, lambda: sdpa(qs, ks, vs, is_causal=True))
+    sdpa_fwd_bwd_ms = device_ms(torch, lambda: torch.autograd.grad(
+        sdpa(qs, ks, vs, is_causal=True), (qs, ks, vs), do))
     timing.update(sdpa_fwd_ms=sdpa_fwd_ms, sdpa_fwd_bwd_ms=sdpa_fwd_bwd_ms,
                   library_bwd_ms=sdpa_fwd_bwd_ms - sdpa_fwd_ms)
     costs = flash_bwd_cost(b, h, h, s, s, d, 2)
@@ -804,18 +930,7 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    t0 = time.perf_counter()
-    sources = (tflash.KERNEL_SOURCE, tflash.BWD_KERNEL_SOURCE)
-    with ThreadPoolExecutor(len(sources)) as pool:
-        reports = list(pool.map(_build.build, sources))
-    for src in sources:
-        _build.load(src)
-    emit(phase="build", sources=sorted({v[0] for v in KERNELS.values()}),
-         build_s=time.perf_counter() - t0,
-         ptxas={src: [ln.split("info    :")[-1].strip()
-                      for ln in report.splitlines()
-                      if "registers" in ln or "spill" in ln]
-                for src, report in zip(sources, reports)})
+    phase_build(_build, tflash)
 
     worst, timing = phase_kernel(torch, tflash, device)
     bwd_worst, bwd_timing = phase_bwd_kernel(torch, tflash, device)
@@ -833,10 +948,21 @@ def main() -> int:
     run_step, step_ms, launches = phase_train(torch, port, tflash, device)
     phase_train_breakdown(torch, run_step, step_ms)
 
+    # bf16 at the serving prefill shape (ms, library_ms) and at the
+    # FLAGSHIP train shape (train_*), with the design each one ran
     rows = {"flash_attention_fwd": dict(
         max_abs_err=worst["bfloat16"], ms=timing["ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
-        bound_by=timing["bound_by"], library_ms=timing["library_ms"])}
+        bound_by=timing["bound_by"], library_ms=timing["library_ms"],
+        tflops_per_s=timing["tflops_per_s"],
+        library_ratio=timing["ms"] / timing["library_ms"],
+        call_ms=timing["call_ms"], library_call_ms=timing["library_call_ms"],
+        train_ms=bwd_timing["fwd_ms"],
+        train_call_ms=bwd_timing["fwd_call_ms"],
+        train_library_ms=bwd_timing["sdpa_fwd_ms"],
+        train_bound_ms=bwd_timing["fwd_bound_ms"],
+        train_tflops_per_s=bwd_timing["fwd_tflops_per_s"],
+        train_library_ratio=bwd_timing["fwd_ms"] / bwd_timing["sdpa_fwd_ms"])}
     # the plain version and SDPA compute dQ, dK and dV in one call: their
     # times stand beside both kernels together (both_ms), not one alone
     for name, kern in (("flash_attention_bwd_dkv", "dkv"),
@@ -847,8 +973,14 @@ def main() -> int:
             bound_ms=bwd_timing[f"{kern}_bound_ms"],
             bound_by=bwd_timing[f"{kern}_bound_by"],
             library_ms=bwd_timing["library_bwd_ms"],
+            tflops_per_s=bwd_timing[f"{kern}_tflops_per_s"],
+            library_ratio=(bwd_timing[f"{kern}_ms"]
+                           / bwd_timing["library_bwd_ms"]),
+            call_ms=bwd_timing[f"{kern}_call_ms"],
             both_ms=bwd_timing["both_ms"],
             plain_and_library_compute="dq+dk+dv")
+    for name, row in rows.items():
+        row["design"] = tflash.DESIGNS[name][torch.bfloat16]
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=launches[name], **row)

@@ -19,34 +19,45 @@
 //   * whole tiles outside the causal/window band are skipped: the dQ
 //     kernel walks the forward's k-tile range, the dK/dV kernel the q-tile
 //     range of the same `_frontier_ok` solved for the q-tile index.
+// lse and delta are (B, H, Sq) float32 rows with row stride `ld`.
 //
-// Threads: 256 per block, each owning a 4 x 4 micro-tile of a 64 x 64
-// logits tile (rows 4*ty .. 4*ty+3, cols tx + 16*j) and a 4 x D/16 slice
-// of its accumulator, fed from float32 tiles in shared memory, as in the
-// forward kernel.
-//   * dK/dV: one block per (k-tile of 64 keys, b * h_kv). It loads its k
-//     and v tiles once and loops over the g query heads of its kv group
-//     and their q-tiles itself (the TPU grid's sequential axis), so the
-//     GQA group sum happens in its float32 registers and dK/dV are written
-//     once as (B, Hkv, Sk, D): no per-q-head partials, no atomics.
-//   * dQ: one block per (q-tile of 64 rows, b * h), looping over k-tiles.
-// Both are deterministic: every output element is summed by one thread in
-// a fixed order.
-//
-// What bounds it on the H100: at the training shape (S = 1024, D = 64,
-// causal) the backward does 14 * D FLOPs per visible (query, key) pair
-// against ~4 bytes of traffic per pair per kernel, so it is compute-bound
-// (~0.046 ms at the 989 TFLOP/s bf16 dense peak for B = 8, H = 12). This
-// first version does its five products with scalar float32 FMA from
-// shared memory (67 TFLOP/s f32 peak, bounded in practice by the
-// shared-memory loads: ~2 FMA per load with the 4 x 4 micro-tile), not on
-// the tensor cores. wgmma with TMA-fed tiles is the follow-up, shared with
-// the forward kernel.
+// dK/dV: one block per (k-tile of 64 keys, b * h_kv). It loops over the g
+// query heads of its kv group and their q-tiles itself (the TPU grid's
+// sequential axis), so the GQA group sum happens in its float32 registers
+// and dK/dV are written once as (B, Hkv, Sk, D): no per-q-head partials,
+// no atomics, deterministic. Two designs, picked by dtype in the C entry:
+//   * bfloat16 -- flash_bwd_dkv_kernel_sm90, FlashAttention-3's form with
+//     keys as the rows: one warpgroup (128 threads); thread 0 loads the k
+//     and v tiles once and each q-tile's q, dO, lse and delta into a ring
+//     of kStages stages with TMA (completed on mbarriers), the next tiles
+//     in flight while the warpgroup computes. S^T = k.q^T and dP^T =
+//     v.dO^T are wgmma products from shared memory; p^T and ds^T are
+//     formed on the f32 accumulators in registers, rounded to bf16 there
+//     and used as the register A operand of dV += p^T.dO and dK += ds^T.q,
+//     whose B operands (dO, q) are read MN-major from the same tiles.
+//     The next q-tile's S^T and dP^T are issued right behind dV/dK, so
+//     p^T is formed while the tensor cores finish dP^T; only tiles that
+//     cross the causal/window/padding edge evaluate the mask per element.
+//     What bounds it on the H100: 8 D FLOPs per visible (query, key) pair
+//     against ~4 bytes per pair, compute-bound at the tensor cores' 989
+//     TFLOP/s; one warpgroup per block runs its elementwise work between
+//     the products (several blocks per SM overlap each other).
+//   * float32 -- flash_bwd_dkv_kernel: the scalar design, exact f32.
+// dQ: flash_bwd_dq_kernel, the scalar design for both dtypes, one block
+// per (q-tile of 64 rows, b * h) looping over k-tiles.
+// The scalar kernels use 256 threads, each owning a 4 x 4 micro-tile of a
+// 64 x 64 logits tile (rows 4*ty .. 4*ty+3, cols tx + 16*j) and a 4 x D/16
+// slice of its accumulator, fed from float32 tiles in shared memory (67
+// TFLOP/s f32 peak, bounded in practice by the shared-memory loads: ~2
+// FMA per load). Every output element is summed by one thread in a fixed
+// order, so all three are deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -68,8 +79,8 @@ struct Params {
   const void* k;
   const void* v;
   const void* dout;
-  const float* lse;     // (B, H, Sq) contiguous
-  const float* delta;   // (B, H, Sq) contiguous
+  const float* lse;     // (B, H, Sq), row stride ld
+  const float* delta;   // (B, H, Sq), row stride ld
   void* dq;             // (B, H, Sq, D) contiguous
   void* dk;             // (B, Hkv, Sk, D) contiguous
   void* dv;             // (B, Hkv, Sk, D) contiguous
@@ -77,7 +88,7 @@ struct Params {
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
   long long do_sb, do_sh, do_ss;
-  int h, h_kv, s_q, s_k, n_q, n_k;
+  int h, h_kv, s_q, s_k, n_q, n_k, ld;
   float scale;
   int causal, window, causal_offset, diag_offset;
 };
@@ -233,7 +244,7 @@ flash_bwd_dkv_kernel(const Params p) {
     const T* q = static_cast<const T*>(p.q) + bi * p.q_sb + hi * p.q_sh;
     const T* dout = static_cast<const T*>(p.dout) + bi * p.do_sb +
                     hi * p.do_sh;
-    const long long row_base = ((long long)bi * p.h + hi) * p.s_q;
+    const long long row_base = ((long long)bi * p.h + hi) * p.ld;
     for (long long t = t_lo; t <= t_hi; ++t) {
       const int q0 = (int)t * kBQ;
       __syncthreads();  // k/v loaded / the previous q-tile fully consumed
@@ -315,7 +326,7 @@ flash_bwd_dq_kernel(const Params p) {
   const T* v = static_cast<const T*>(p.v) + bi * p.v_sb + hk * p.v_sh;
   const int q0 = iq * kBQ;
   const long long off = (long long)p.s_k - p.s_q + p.diag_offset;
-  const long long row_base = (long long)bh * p.s_q;
+  const long long row_base = (long long)bh * p.ld;
 
   load_tile<T, D>(qs, static_cast<const T*>(p.q) + bi * p.q_sb + hi * p.q_sh,
                   p.q_ss, q0, p.s_q);
@@ -374,7 +385,7 @@ flash_bwd_dq_kernel(const Params p) {
     }
   }
 
-  T* dq_out = static_cast<T*>(p.dq) + row_base * D;
+  T* dq_out = static_cast<T*>(p.dq) + (long long)bh * p.s_q * D;
 #pragma unroll
   for (int i = 0; i < kRM; ++i) {
     const int row = q0 + ty * kRM + i;
@@ -383,6 +394,296 @@ flash_bwd_dq_kernel(const Params p) {
     for (int j = 0; j < kDC; ++j)
       dq_out[(long long)row * D + tx + kTX * j] = from_f<T>(dq[i][j]);
   }
+}
+
+// ---- bfloat16 dK/dV: wgmma + TMA ------------------------------------
+
+// q-tile ring depth of the bf16 dK/dV kernel, from an H100 sweep
+// (`python -m distributed_pytorch_tpu_torch.ops.flash_tile_sweep`)
+#ifndef DPX_SM90_DKV_STAGES
+#define DPX_SM90_DKV_STAGES 3
+#endif
+constexpr int kWgThreads = 128;  // one warpgroup
+constexpr int kStages = DPX_SM90_DKV_STAGES;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct DkvLayout {
+  static constexpr int kTile = 64 * D * 2;     // one 64-row bf16 tile
+  static constexpr int kRow = 64 * 4;          // one f32 row term
+  static constexpr int kStage = 2 * kTile + 4 * kRow;  // q, dO, lse, delta
+  static constexpr int kBytes = 2 * kTile + kStages * kStage;  // + k, v
+  static constexpr uint32_t kStageTx = 2 * kTile + 2 * kRow;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_lse,
+                          const __grid_constant__ CUtensorMap tm_delta,
+                          const Params p) {
+  using L = DkvLayout<D>;
+  constexpr int kAtoms = D / sm90::kAtomCols;
+  static_assert(kBQ == 64 && kBK == 64, "one warpgroup: 64-row tiles");
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_kv;
+  __shared__ __align__(8) uint64_t bar_q[kStages];
+  uint8_t* ks = sm90::align_1024(smem_raw);   // later: dK staging
+  uint8_t* vs = ks + L::kTile;                // later: dV staging
+  uint8_t* ring = vs + L::kTile;  // stage s: q, dO, lse, delta
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int ik = blockIdx.x;
+  const int bhk = blockIdx.y;
+  const int bi = bhk / p.h_kv;
+  const int hk = bhk % p.h_kv;
+  const int g = p.h / p.h_kv;
+  const int k0 = ik * kBK;
+  const long long off = (long long)p.s_k - p.s_q + p.diag_offset;
+
+  // q-tiles whose rows see any key of this tile (the forward's frontier
+  // solved for the q-tile index)
+  long long t_lo = 0, t_hi = p.n_q - 1;
+  if (p.causal) {
+    const long long first = floor_div((long long)k0 - off, kBQ);
+    t_lo = first > 0 ? first : 0;
+    if (p.window > 0) {
+      const long long last =
+          floor_div((long long)k0 + kBK + p.window - off - 2, kBQ);
+      t_hi = last < t_hi ? last : t_hi;
+    }
+  }
+  const int n_t = t_hi >= t_lo ? (int)(t_hi - t_lo + 1) : 0;
+  const int n_it = g * n_t;   // (q head of the group, q-tile) pairs
+
+  auto load_q = [&](int it) {
+    const int s = it % kStages;
+    uint8_t* st = ring + s * L::kStage;
+    const int hi = hk * g + it / n_t;
+    const int q0 = (int)(t_lo + it % n_t) * kBQ;
+    sm90::mbar_expect_tx(&bar_q[s], L::kStageTx);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a) {
+      sm90::tma_load_4d(st + a * kBQ * sm90::kLineBytes, &tm_q, &bar_q[s],
+                        a * sm90::kAtomCols, q0, hi, bi);
+      sm90::tma_load_4d(st + L::kTile + a * kBQ * sm90::kLineBytes, &tm_do,
+                        &bar_q[s], a * sm90::kAtomCols, q0, hi, bi);
+    }
+    sm90::tma_load_3d(st + 2 * L::kTile, &tm_lse, &bar_q[s], q0, hi, bi);
+    sm90::tma_load_3d(st + 2 * L::kTile + 2 * L::kRow, &tm_delta, &bar_q[s],
+                      q0, hi, bi);
+  };
+
+  if (tid == 0) {
+    sm90::mbar_init(&bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) sm90::mbar_init(&bar_q[s], 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    sm90::mbar_expect_tx(&bar_kv, 2 * L::kTile);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a) {
+      sm90::tma_load_4d(ks + a * kBK * sm90::kLineBytes, &tm_k, &bar_kv,
+                        a * sm90::kAtomCols, k0, hk, bi);
+      sm90::tma_load_4d(vs + a * kBK * sm90::kLineBytes, &tm_v, &bar_kv,
+                        a * sm90::kAtomCols, k0, hk, bi);
+    }
+    for (int it = 0; it < kStages && it < n_it; ++it) load_q(it);
+  }
+
+  // this thread's keys (accumulator rows) r_lo and r_lo + 8, and its
+  // q-row columns c_q + 8 j (+ 1)
+  const int r_lo = 16 * warp + lane / 4;
+  const int c_q = 2 * (lane % 4);
+  const float scale2 = p.scale * kLog2e;
+  const int off32 = (int)off;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  float st[kBQ / 2], dpt[kBQ / 2];
+  uint32_t pa[kBQ / 16][4], dsa[kBQ / 16][4];
+
+  auto stage = [&](int it) { return ring + (it % kStages) * L::kStage; };
+  // S^T = k . q^T and dP^T = v . dO^T of q-iteration `it` (keys x q
+  // rows), one commit group each
+  auto issue_s_dp = [&](int it) {
+    const uint8_t* qs = stage(it);
+    const uint8_t* dos = qs + L::kTile;
+#pragma unroll
+    for (int i = 0; i < kBQ / 2; ++i) st[i] = dpt[i] = 0.f;
+    sm90::fence_regs(st);
+    sm90::fence_regs(dpt);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss<0>(st, sm90::desc_kmajor(ks, kBK, kk),
+                        sm90::desc_kmajor(qs, kBQ, kk), 1);
+    sm90::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss<0>(dpt, sm90::desc_kmajor(vs, kBK, kk),
+                        sm90::desc_kmajor(dos, kBQ, kk), 1);
+    sm90::wgmma_commit();
+  };
+
+  // Software pipeline: S^T and dP^T of q-iteration it + 1 are issued
+  // right behind dV/dK of iteration it, so p^T of it + 1 is formed while
+  // the tensor cores finish dP^T.
+  sm90::mbar_wait(&bar_kv, 0);
+  if (n_it > 0) {
+    sm90::mbar_wait(&bar_q[0], 0);
+    issue_s_dp(0);
+  }
+  for (int it = 0; it < n_it; ++it) {
+    const uint8_t* qs = stage(it);
+    const uint8_t* dos = qs + L::kTile;
+    const float* lse_s = reinterpret_cast<const float*>(qs + 2 * L::kTile);
+    const float* delta_s = lse_s + 2 * (L::kRow / 4);
+    const int q0 = (int)(t_lo + it % n_t) * kBQ;
+    // only tiles that cross an edge pay for the per-element mask
+    const bool edge =
+        k0 + kBK > p.s_k || q0 + kBQ > p.s_q ||
+        (p.causal && k0 + kBK - 1 > q0 + off32 - p.causal_offset) ||
+        (p.window > 0 && k0 <= q0 + kBQ - 1 + off32 - p.window);
+
+    sm90::wgmma_wait<1>();   // S^T of it (and dV/dK of it - 1) done
+    sm90::fence_regs(st);
+    sm90::fence_regs(dv);
+    sm90::fence_regs(dk);
+    // q-iteration it - 1's stage is free: refill it kStages ahead
+    if (it >= 1 && it - 1 + kStages < n_it) {
+      __syncthreads();
+      if (tid == 0) load_q(it - 1 + kStages);
+    }
+
+    // p^T = exp(s * scale - lse), exact zeros where masked
+#pragma unroll
+    for (int i = 0; i < kBQ / 2; ++i) {
+      const int c = 8 * (i / 4) + c_q + (i % 2);
+      st[i] = exp2f(fmaf(st[i], scale2, -lse_s[c] * kLog2e));
+    }
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < kBQ / 2; ++i) {
+        const int row = q0 + 8 * (i / 4) + c_q + (i % 2);   // query row
+        const int col = k0 + r_lo + 8 * ((i % 4) / 2);      // key
+        bool masked = col >= p.s_k || row >= p.s_q;
+        if (p.causal) masked = masked || col > row + off32 - p.causal_offset;
+        if (p.window > 0) masked = masked || col <= row + off32 - p.window;
+        st[i] = masked ? 0.f : st[i];
+      }
+    }
+    sm90::acc_to_a<kBQ>(st, pa);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dpt);
+
+    // ds^T = p^T (dP^T - delta) scale
+#pragma unroll
+    for (int i = 0; i < kBQ / 2; ++i) {
+      const int c = 8 * (i / 4) + c_q + (i % 2);
+      dpt[i] = st[i] * (dpt[i] - delta_s[c]) * p.scale;
+    }
+    sm90::acc_to_a<kBQ>(dpt, dsa);
+
+    // dV += p^T . dO and dK += ds^T . q (one commit group)
+    sm90::fence_regs(dv);
+    sm90::fence_regs(dk);
+    sm90::fence_regs(pa);
+    sm90::fence_regs(dsa);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk)
+      sm90::wgmma_rs<1>(dv, pa[kk], sm90::desc_mnmajor(dos, kBQ, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk)
+      sm90::wgmma_rs<1>(dk, dsa[kk], sm90::desc_mnmajor(qs, kBQ, kk), 1);
+    sm90::wgmma_commit();
+
+    if (it + 1 < n_it) {
+      sm90::mbar_wait(&bar_q[(it + 1) % kStages], ((it + 1) / kStages) & 1);
+      issue_s_dp(it + 1);
+    } else {
+      sm90::wgmma_wait<0>();
+    }
+    sm90::fence_regs(pa);
+    sm90::fence_regs(dsa);
+  }
+  sm90::fence_regs(dv);
+  sm90::fence_regs(dk);
+
+  // epilogue: dK, dV in bf16 through shared memory (the k and v tiles'
+  // space, free once every product has completed), coalesced stores
+  __syncthreads();
+  __nv_bfloat16* dks = reinterpret_cast<__nv_bfloat16*>(ks);
+  __nv_bfloat16* dvs = reinterpret_cast<__nv_bfloat16*>(vs);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int row = r_lo + 8 * rh;
+      const int at = row * D + ((j ^ (row & 7)) * 8) + c_q;
+      *reinterpret_cast<__nv_bfloat162*>(dks + at) = __floats2bfloat162_rn(
+          dk[4 * j + 2 * rh], dk[4 * j + 2 * rh + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvs + at) = __floats2bfloat162_rn(
+          dv[4 * j + 2 * rh], dv[4 * j + 2 * rh + 1]);
+    }
+  __syncthreads();
+  const long long base = ((long long)bhk * p.s_k + k0) * D;
+  __nv_bfloat16* dk_out = static_cast<__nv_bfloat16*>(p.dk) + base;
+  __nv_bfloat16* dv_out = static_cast<__nv_bfloat16*>(p.dv) + base;
+  for (int idx = tid; idx < kBK * D / 8; idx += kWgThreads) {
+    const int row = idx / (D / 8), ch = idx % (D / 8);
+    if (k0 + row >= p.s_k) continue;
+    const int at = row * D + ((ch ^ (row & 7)) * 8);
+    *reinterpret_cast<int4*>(dk_out + row * D + ch * 8) =
+        *reinterpret_cast<const int4*>(dks + at);
+    *reinterpret_cast<int4*>(dv_out + row * D + ch * 8) =
+        *reinterpret_cast<const int4*>(dvs + at);
+  }
+}
+
+template <int D>
+int launch_dkv_sm90(const Params& p, int b, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta;
+  int rc = sm90_host::tmap_bf16(&tm_q, p.q, D, p.s_q, p.h, b, p.q_ss, p.q_sh,
+                                p.q_sb, kBQ);
+  if (rc == 0)
+    rc = sm90_host::tmap_bf16(&tm_k, p.k, D, p.s_k, p.h_kv, b, p.k_ss,
+                              p.k_sh, p.k_sb, kBK);
+  if (rc == 0)
+    rc = sm90_host::tmap_bf16(&tm_v, p.v, D, p.s_k, p.h_kv, b, p.v_ss,
+                              p.v_sh, p.v_sb, kBK);
+  if (rc == 0)
+    rc = sm90_host::tmap_bf16(&tm_do, p.dout, D, p.s_q, p.h, b, p.do_ss,
+                              p.do_sh, p.do_sb, kBQ);
+  if (rc == 0)
+    rc = sm90_host::tmap_rows_f32(&tm_lse, p.lse, p.s_q, p.h, b, p.ld, kBQ);
+  if (rc == 0)
+    rc = sm90_host::tmap_rows_f32(&tm_delta, p.delta, p.s_q, p.h, b, p.ld,
+                                  kBQ);
+  if (rc != 0) return rc;
+  const int smem = DkvLayout<D>::kBytes + 1024;  // + 1024-byte alignment
+  // the shared-memory opt-in is set once per device, not per launch
+  static unsigned long long opted_in = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64 || !(opted_in >> dev & 1ull)) {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel_sm90<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) opted_in |= 1ull << dev;
+  }
+  flash_bwd_dkv_kernel_sm90<D><<<dim3(p.n_k, b * p.h_kv), kWgThreads, smem,
+                                 stream>>>(tm_q, tm_k, tm_v, tm_do, tm_lse,
+                                           tm_delta, p);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -414,8 +715,9 @@ int launch_dq(const Params& p, int b, cudaStream_t stream) {
 Params make_params(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, void* dk, void* dv, const long long* strides,
-                   int h, int h_kv, int s_q, int s_k, float scale, int causal,
-                   int window, int causal_offset, int diag_offset) {
+                   int h, int h_kv, int s_q, int s_k, int ld, float scale,
+                   int causal, int window, int causal_offset,
+                   int diag_offset) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse = lse; p.delta = delta;
   p.dq = dq; p.dk = dk; p.dv = dv;
@@ -426,6 +728,7 @@ Params make_params(const void* q, const void* k, const void* v,
   p.h = h; p.h_kv = h_kv; p.s_q = s_q; p.s_k = s_k;
   p.n_q = (s_q + kBQ - 1) / kBQ;
   p.n_k = (s_k + kBK - 1) / kBK;
+  p.ld = ld;
   p.scale = scale; p.causal = causal; p.window = window;
   p.causal_offset = causal_offset; p.diag_offset = diag_offset;
   return p;
@@ -436,25 +739,28 @@ Params make_params(const void* q, const void* k, const void* v,
 // C entries bound with ctypes. dtype: 0 float32, 1 bfloat16 (q, k, v and
 // dO share it). window <= 0 means no window. `strides` holds 12 element
 // strides: batch, head and sequence of q, k, v and dO in that order; the
-// last axis of each is contiguous. lse and delta are contiguous (B, H, Sq)
-// float32; dq is written contiguous (B, H, Sq, D), dk and dv contiguous
-// (B, Hkv, Sk, D), all in the input type. Each returns the
-// cudaGetLastError() code of its launch (0 on success), or -1 for a dtype
-// / head size these kernels do not take.
+// last axis of each is contiguous. lse and delta are (B, H, Sq) float32
+// with row stride `ld`; dq is written contiguous (B, H, Sq, D), dk and dv
+// contiguous (B, Hkv, Sk, D), all in the input type. For the bfloat16
+// dK/dV kernel (TMA) every base is 16-byte aligned, every bf16 stride but
+// the last a multiple of 8 and `ld` a multiple of 4. Each returns the
+// cudaGetLastError() code of its launch (0 on success), -1 for a dtype /
+// head size these kernels do not take, -2 / -3 when libcuda offers no TMA
+// encoder / the encoder refuses a descriptor.
 extern "C" int dpx_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv,
     const long long* strides, int b, int h, int h_kv, int s_q, int s_k, int d,
-    int dtype, float scale, int causal, int window, int causal_offset,
+    int ld, int dtype, float scale, int causal, int window, int causal_offset,
     int diag_offset, void* stream) {
   const Params p = make_params(q, k, v, dout, lse, delta, nullptr, dk, dv,
-                               strides, h, h_kv, s_q, s_k, scale, causal,
-                               window, causal_offset, diag_offset);
+                               strides, h, h_kv, s_q, s_k, ld, scale,
+                               causal, window, causal_offset, diag_offset);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && d == 64) return launch_dkv<float, 64>(p, b, st);
   if (dtype == 0 && d == 128) return launch_dkv<float, 128>(p, b, st);
-  if (dtype == 1 && d == 64) return launch_dkv<__nv_bfloat16, 64>(p, b, st);
-  if (dtype == 1 && d == 128) return launch_dkv<__nv_bfloat16, 128>(p, b, st);
+  if (dtype == 1 && d == 64) return launch_dkv_sm90<64>(p, b, st);
+  if (dtype == 1 && d == 128) return launch_dkv_sm90<128>(p, b, st);
   return -1;
 }
 
@@ -462,11 +768,12 @@ extern "C" int dpx_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq,
     const long long* strides, int b, int h, int h_kv, int s_q, int s_k, int d,
-    int dtype, float scale, int causal, int window, int causal_offset,
+    int ld, int dtype, float scale, int causal, int window, int causal_offset,
     int diag_offset, void* stream) {
   const Params p = make_params(q, k, v, dout, lse, delta, dq, nullptr,
-                               nullptr, strides, h, h_kv, s_q, s_k, scale,
-                               causal, window, causal_offset, diag_offset);
+                               nullptr, strides, h, h_kv, s_q, s_k, ld,
+                               scale, causal, window, causal_offset,
+                               diag_offset);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && d == 64) return launch_dq<float, 64>(p, b, st);
   if (dtype == 0 && d == 128) return launch_dq<float, 128>(p, b, st);

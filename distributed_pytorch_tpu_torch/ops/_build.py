@@ -1,9 +1,10 @@
 """Build a CUDA source of the port into a shared library and load it.
 
 Route (b) of the port's kernel build: ``nvcc`` compiles one ``csrc/*.cu``
-file with a plain C interface into ``build/torch_kernels/`` at the repo
-root, keyed by a hash of the source and the flags, and ``ctypes`` loads
-it. Nothing is built at import: the first launch builds.
+file with a plain C interface for ``sm_90a`` (wgmma needs the ``a``) into
+``build/torch_kernels/`` at the repo root, keyed by a hash of the source,
+every ``csrc/*.cuh`` header it may include and the flags, and ``ctypes``
+loads it. Nothing is built at import: the first launch builds.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -24,7 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -38,23 +39,36 @@ def _nvcc() -> str:
                        "from source on a machine with the CUDA toolkit")
 
 
-def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
-    src = (CSRC / source).read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{Path(source).stem}-{key[:16]}.so"
+def library_path(source: str, csrc: Path = CSRC,
+                 defines: Tuple[str, ...] = ()) -> Path:
+    """Where the library built from ``csrc/<source>`` (with the ``-D``
+    ``defines``) lives: the name changes with the source, with any shared
+    header and with the flags, so an edited header never loads a stale
+    library."""
+    digest = hashlib.sha256((csrc / source).read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS + _flags(defines)).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build(source: str) -> str:
+def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    return tuple(f"-D{d}" for d in defines)
+
+
+def build(source: str, defines: Tuple[str, ...] = ()) -> str:
     """Compile ``csrc/<source>`` unless the hashed library exists;
-    returns the compiler's report (empty when nothing was built)."""
-    out = library_path(source)
+    returns the compiler's report (empty when nothing was built).
+    ``defines`` (``NAME=VALUE``) override a source's compile-time tile
+    constants; the port runs with none."""
+    out = library_path(source, defines=defines)
     if out.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+        [_nvcc(), *NVCC_FLAGS, *_flags(defines), "-o", str(tmp),
+         str(CSRC / source)],
         capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
@@ -62,11 +76,12 @@ def build(source: str) -> str:
     return proc.stderr
 
 
-def load(source: str) -> ctypes.CDLL:
+def load(source: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>``, built at first use."""
     with _lock:
-        lib = _loaded.get(source)
+        lib = _loaded.get((source, defines))
         if lib is None:
-            build(source)
-            lib = _loaded[source] = ctypes.CDLL(str(library_path(source)))
+            build(source, defines)
+            lib = _loaded[(source, defines)] = ctypes.CDLL(
+                str(library_path(source, defines=defines)))
         return lib

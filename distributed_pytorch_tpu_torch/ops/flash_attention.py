@@ -12,7 +12,9 @@ Hkv dividing H; outputs O (B, H, Sq, D) in the input dtype and lse
 - :func:`flash_attention_fwd_cuda` launches ``csrc/flash_attention_fwd.cu``,
   :func:`flash_attention_bwd_cuda` the two kernels of
   ``csrc/flash_attention_bwd.cu`` (built at first use); each wrapper
-  counts its launches in ``LAUNCHES``.
+  counts its launches in ``LAUNCHES``. The C entries pick the design by
+  dtype: bfloat16 runs the wgmma + TMA forward and dK/dV kernels
+  (:data:`DESIGNS`), float32 and every dQ the scalar-FMA kernels.
 - :func:`flash_attention_with_lse` / :func:`flash_attention` validate
   the arguments as the JAX package does and go through one
   ``autograd.Function`` (the JAX ``_flash_lse`` and its ``defvjp``) that
@@ -41,6 +43,21 @@ KERNEL_SOURCE = "flash_attention_fwd.cu"
 BWD_KERNEL_SOURCE = "flash_attention_bwd.cu"
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+
+#: Compile-time tile overrides (``NAME=VALUE``) each source is built
+#: with; empty means the defaults written in the sources. Only the tile
+#: sweep (``ops/flash_tile_sweep.py``) sets them.
+BUILD_DEFINES = {KERNEL_SOURCE: (), BWD_KERNEL_SOURCE: ()}
+
+#: The kernel design each C entry runs, by kernel and dtype.
+DESIGNS = {
+    "flash_attention_fwd": {torch.bfloat16: "wgmma+tma",
+                            torch.float32: "scalar_fma"},
+    "flash_attention_bwd_dkv": {torch.bfloat16: "wgmma+tma",
+                                torch.float32: "scalar_fma"},
+    "flash_attention_bwd_dq": {torch.bfloat16: "scalar_fma",
+                               torch.float32: "scalar_fma"},
+}
 
 #: Launches of each kernel wrapper of this module; a wrapper adds one
 #: where it launches its kernel and nowhere else.
@@ -149,8 +166,17 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 9
              + [ctypes.c_void_p])
 
 
+def _error(rc: int) -> str:
+    """A C entry's nonzero return code in words."""
+    return {-1: "unsupported dtype or head size",
+            -2: "no TMA descriptor encoder in libcuda",
+            -3: "a TMA descriptor the encoder refused"}.get(
+                rc, f"CUDA error {rc}")
+
+
 def _kernel_fn():
-    fn = _build.load(KERNEL_SOURCE).dpx_flash_attention_fwd
+    fn = _build.load(KERNEL_SOURCE,
+                     BUILD_DEFINES[KERNEL_SOURCE]).dpx_flash_attention_fwd
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
@@ -194,6 +220,38 @@ def _check_cuda_inputs(name: str, q, k, v, *more):
     return b, h, h_kv, s_q, s_k, d
 
 
+def _strides(t):
+    """The element strides of a (B, heads, S, D) tensor's first three
+    axes, with the stride of a size-1 axis (which torch leaves arbitrary
+    and no load ever uses) replaced by its contiguous value."""
+    (sb, sh, ss, _), (b, h, s, d) = t.stride(), t.shape
+    return (sb if b > 1 else h * s * d, sh if h > 1 else s * d,
+            ss if s > 1 else d)
+
+
+def _tma_view(t):
+    """``t`` itself when TMA can read it in place (16-byte aligned base,
+    every stride but the last a multiple of 8 bf16 elements, as the
+    model's fused-projection views are), else a contiguous copy: the
+    bf16 kernels load their tiles through TMA descriptors built on the
+    tensor's own strides."""
+    if t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in _strides(t)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _rows(t, ld: int):
+    """A (B, H, S) float32 row term (lse, delta) with row stride ``ld``
+    (S rounded up to a multiple of 4, so TMA's 16-byte stride rule
+    holds) and a 16-byte aligned base: ``t`` itself when it already is,
+    else a zero-padded copy."""
+    if t.is_contiguous() and t.shape[-1] == ld and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros(t.shape[:-1] + (ld,))
+    out[..., :t.shape[-1]] = t
+    return out
+
+
 def flash_attention_fwd_cuda(q, k, v, *, causal: bool = False,
                              scale: Optional[float] = None,
                              window: Optional[int] = None,
@@ -203,6 +261,8 @@ def flash_attention_fwd_cuda(q, k, v, *, causal: bool = False,
     or 128, last axis contiguous; anything else raises."""
     b, h, h_kv, s_q, s_k, d = _check_cuda_inputs(
         "flash_attention_fwd_cuda", q, k, v)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_tma_view(t) for t in (q, k, v))
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     o = torch.empty((b, h, s_q, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
@@ -211,14 +271,14 @@ def flash_attention_fwd_cuda(q, k, v, *, causal: bool = False,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(),
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *_strides(q), *_strides(k), *_strides(v),
                 b, h, h_kv, s_q, s_k, d,
                 DTYPES.index(q.dtype), float(scale), int(causal),
                 int(window) if window is not None else 0,
                 int(causal_offset), int(diag_offset), stream)
     if rc != 0:
         raise RuntimeError(f"flash attention forward launch failed with "
-                           f"CUDA error {rc}")
+                           f"{_error(rc)}")
     LAUNCHES["flash_attention_fwd"] += 1
     return o, lse
 
@@ -299,12 +359,13 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, g_lse=None, *,
 
 # q, k, v, dO, lse, delta, then the outputs, then _BWD_TAIL
 _BWD_COMMON = [ctypes.c_void_p] * 6
-_BWD_TAIL = ([ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 7
+_BWD_TAIL = ([ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 8
              + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _bwd_kernel_fn(name: str, n_out: int):
-    fn = getattr(_build.load(BWD_KERNEL_SOURCE), name)
+    fn = getattr(_build.load(BWD_KERNEL_SOURCE,
+                             BUILD_DEFINES[BWD_KERNEL_SOURCE]), name)
     if fn.argtypes is None:
         fn.argtypes = _BWD_COMMON + [ctypes.c_void_p] * n_out + _BWD_TAIL
         fn.restype = ctypes.c_int
@@ -328,21 +389,24 @@ class FlashBwdLaunch:
                              f"{lse.dtype} {tuple(lse.shape)}")
         # dO comes from autograd as a strided view; the kernels take its
         # strides and copy it only where its last axis is not contiguous
+        # (or, for the bf16 TMA loads, where a stride is not 16 bytes)
         if do.stride(-1) != 1:
             do = do.contiguous()
+        if q.dtype == torch.bfloat16:
+            q, k, v, do = (_tma_view(t) for t in (q, k, v, do))
         self.q, self.k, self.v, self.do = q, k, v, do
-        self.lse = lse.contiguous()
-        self.delta = _delta(o, do, g_lse).contiguous()
+        ld = -(-s_q // 4) * 4
+        self.lse = _rows(lse, ld)
+        self.delta = _rows(_delta(o, do, g_lse), ld)
         self.dq = torch.empty((b, h, s_q, d), dtype=q.dtype, device=q.device)
         self.dk = torch.empty((b, h_kv, s_k, d), dtype=k.dtype,
                               device=k.device)
         self.dv = torch.empty_like(self.dk)
         # the ctypes array must outlive both launches: keep it here
         self.strides = (ctypes.c_longlong * 12)(
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *do.stride()[:3])
+            *_strides(q), *_strides(k), *_strides(v), *_strides(do))
         scale = scale if scale is not None else 1.0 / math.sqrt(d)
-        self.tail = (b, h, h_kv, s_q, s_k, d, DTYPES.index(q.dtype),
+        self.tail = (b, h, h_kv, s_q, s_k, d, ld, DTYPES.index(q.dtype),
                      float(scale), int(causal),
                      int(window) if window is not None else 0,
                      int(causal_offset), int(diag_offset))
@@ -358,7 +422,7 @@ class FlashBwdLaunch:
                     self.strides, *self.tail, stream)
         if rc != 0:
             raise RuntimeError(f"flash attention backward launch {name} "
-                               f"failed with CUDA error {rc}")
+                               f"failed with {_error(rc)}")
         LAUNCHES[counter] += 1
 
     def launch_dkv(self) -> None:

@@ -203,6 +203,51 @@ def test_flash_kernel_reads_strided_views(cuda_device):
     torch.testing.assert_close(o, o_ref, atol=1e-4, rtol=0)
 
 
+def _fused_qkv_views(device, b, s, h, d, seed=2):
+    """bf16 q/k/v as (B, H, S, D) views of one fused projection
+    (B, S, 3 H D) and dO as the transposed view of a (B, S, H, D)
+    gradient, as the model hands them over: none contiguous."""
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device, torch.bfloat16)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
+               for t in mk(b, s, 3 * h * d).split(h * d, dim=-1))
+    do = mk(b, s, h, d).transpose(1, 2)
+    assert not any(t.is_contiguous() for t in (q, k, v, do))
+    return q, k, v, do
+
+
+def test_bf16_forward_reads_ragged_fused_qkv_views(cuda_device):
+    """S = 1000 (not a multiple of the 64-row tile), B = 2: the TMA
+    descriptors run on the views' own strides and zero-fill past the
+    sequence's end."""
+    q, k, v, _ = _fused_qkv_views(cuda_device, 2, 1000, 4, 64)
+    o, lse = tflash.flash_attention_fwd_cuda(q, k, v, causal=True)
+    o_ref, lse_ref = tflash.flash_attention_fwd_reference(q, k, v,
+                                                          causal=True)
+    torch.cuda.synchronize()
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=tol, rtol=0)
+
+
+def test_bf16_dkv_reads_ragged_fused_qkv_views(cuda_device):
+    """The dK/dV kernel on the same ragged fused-projection views, dO a
+    transposed view; every 64-row tile within BWD_TILE_TOL."""
+    q, k, v, do = _fused_qkv_views(cuda_device, 2, 1000, 4, 64)
+    o, lse = tflash.flash_attention_fwd_reference(q, k, v, causal=True)
+    got = tflash.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+    want = tflash.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                causal=True)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float().cpu(), w.float().cpu()
+        assert torch.isfinite(g).all(), name
+        assert _tile_rel_err(g, w) <= BWD_TILE_TOL, name
+
+
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     q, k, v = _inputs(cuda_device, torch.float16, 1, 2, 2, 16, 16, 64)
     with pytest.raises(ValueError, match="float32 or bfloat16"):

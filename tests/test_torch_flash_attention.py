@@ -72,7 +72,18 @@ def test_plain_flash_matches_jax_kernel(case):
         assert np.isnan(o_t.numpy()).any()
 
 
-@pytest.mark.parametrize("blocks", [(16, 16), (32, 8), (64, 64)])
+#: the tests' small tiles, the kernels' 64 x 64 and larger Hopper tiles
+TILINGS = [(16, 16), (32, 8), (64, 64), (128, 64), (128, 128)]
+
+# (name, b, h, h_kv, s, kwargs): sequences longer than the kernels' tiles,
+# ragged against 64 and 128, for the plain version at those tilings
+LONG_CASES = [
+    ("ragged_causal", 1, 2, 2, 200, dict(causal=True)),
+    ("gqa_window", 1, 4, 2, 300, dict(causal=True, window=70)),
+]
+
+
+@pytest.mark.parametrize("blocks", TILINGS)
 def test_plain_flash_is_tiling_invariant(blocks):
     """The plain version's tile sizes change only the summation order:
     the kernel's 64 x 64 tiling and the tests' small tiles agree."""
@@ -84,6 +95,25 @@ def test_plain_flash_is_tiling_invariant(blocks):
         block_k=blocks[1])
     _assert_same(o.numpy(), ref.numpy())
     _assert_same(lse.numpy(), ref_lse.numpy())
+
+
+@pytest.mark.parametrize("blocks", TILINGS[2:])
+@pytest.mark.parametrize("case", LONG_CASES, ids=[c[0] for c in LONG_CASES])
+def test_plain_flash_at_kernel_tiles_matches_jax_and_dense(case, blocks):
+    """At the Hopper kernels' tile shapes, over ragged and windowed
+    sequences longer than one tile, the plain version equals the JAX
+    kernel (interpret mode, its own 64 x 64 tiles) and dense attention."""
+    _, b, h, h_kv, s, kw = case
+    q, k, v = _inputs(11, b, h, h_kv, s, s, 16)
+    o_j, lse_j = jflash.flash_attention_with_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=64,
+        block_k=64, interpret=True, **kw)
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    o_t, lse_t = tflash.flash_attention_fwd_reference(
+        qt, kt, vt, block_q=blocks[0], block_k=blocks[1], **kw)
+    _assert_same(o_t.numpy(), o_j)
+    _assert_same(lse_t.numpy(), lse_j)
+    _assert_same(o_t.numpy(), dense_attention(qt, kt, vt, **kw).numpy())
 
 
 def test_plain_flash_matches_dense_attention():

@@ -20,7 +20,7 @@ import torch
 
 from distributed_pytorch_tpu_torch.nn.attention import dense_attention
 from distributed_pytorch_tpu_torch.ops import flash_attention as tflash
-from test_torch_flash_attention import CASES, _inputs
+from test_torch_flash_attention import CASES, LONG_CASES, TILINGS, _inputs
 
 jflash = importlib.import_module("distributed_pytorch_tpu.ops.flash_attention")
 
@@ -115,7 +115,7 @@ def test_lse_only_cotangent():
     torch.testing.assert_close(dk, want[1], atol=TOL, rtol=0)
 
 
-@pytest.mark.parametrize("blocks", [(16, 16), (32, 8), (64, 64)])
+@pytest.mark.parametrize("blocks", TILINGS)
 def test_plain_backward_is_tiling_invariant(blocks):
     """Tile sizes change only the summation order: the kernels' 64 x 64
     tiling and the tests' small tiles give the same gradients."""
@@ -128,6 +128,38 @@ def test_plain_backward_is_tiling_invariant(blocks):
                       block_k=blocks[1])
     for a, w in zip(got, ref):
         torch.testing.assert_close(a, w, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("blocks", TILINGS[2:])
+@pytest.mark.parametrize("case", LONG_CASES, ids=[c[0] for c in LONG_CASES])
+def test_plain_backward_at_kernel_tiles_matches_jax_and_dense(case, blocks):
+    """At the Hopper kernels' tile shapes, over ragged and windowed
+    sequences longer than one tile, the plain backward equals ``jax.vjp``
+    of the JAX kernels (interpret mode, 64 x 64 tiles) and autograd
+    through dense attention."""
+    name, b, h, h_kv, s, kw = case
+    q, k, v = _inputs(12, b, h, h_kv, s, s, 16)
+
+    def f(q, k, v):
+        return jflash.flash_attention_with_lse(
+            q, k, v, block_q=64, block_k=64, interpret=True, **kw)
+
+    (o, lse), vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    g_o, g_lse = _cotangents(13, o, lse)
+    want = vjp((jnp.asarray(g_o), jnp.asarray(g_lse)))
+    got = _port_grads(q, k, v, g_o, g_lse, kw, block_q=blocks[0],
+                      block_k=blocks[1])
+    for label, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL,
+                                   rtol=0, err_msg=label)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    dense = torch.autograd.grad(
+        (dense_attention(qt, kt, vt, **kw) * torch.from_numpy(g_o)).sum(),
+        (qt, kt, vt))
+    plain = _port_grads(q, k, v, g_o, None, kw, block_q=blocks[0],
+                        block_k=blocks[1])
+    for label, g, w in zip(("dq", "dk", "dv"), plain, dense):
+        torch.testing.assert_close(g, w, atol=TOL, rtol=0, msg=label)
 
 
 def test_cpu_tensors_never_reach_the_backward_kernels():

@@ -12,8 +12,8 @@ non-zero at once:
               paths from ``csrc/`` (one nvcc per source, all at once),
               then reads each kernel's registers and spills from ptxas
               and its HGMMA (wgmma) and UTMALDG (TMA load) instruction
-              counts from ``cuobjdump --dump-sass``; the bf16 forward and
-              dK/dV kernels must show both and spill nothing;
+              counts from ``cuobjdump --dump-sass``; the bf16 forward,
+              dK/dV and dQ kernels must show both and spill nothing;
 3. kernel   — the flash forward kernel against its plain PyTorch version
               on the card, bf16 (|diff| <= 2e-2) and f32 (|diff| <= 1e-4),
               with NaN rows identical, over the masking cases and the
@@ -131,8 +131,11 @@ COMPARE = 3                   # the greedy request held to generate()
 MAX_NEW = 32
 
 
-# the kernels that must run on the tensor cores from TMA-fed tiles (bf16)
-SM90_KERNELS = ("flash_fwd_kernel_sm90", "flash_bwd_dkv_kernel_sm90")
+# kernel -> its bf16 __global__ function, which must run on the tensor
+# cores from TMA-fed tiles (every kernel whose bf16 design is wgmma+tma)
+SM90_KERNELS = {"flash_attention_fwd": "flash_fwd_kernel_sm90",
+                "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel_sm90",
+                "flash_attention_bwd_dq": "flash_bwd_dq_kernel_sm90"}
 SASS_OPS = ("HGMMA", "UTMALDG")
 
 
@@ -166,10 +169,16 @@ def kernel_label(mangled: str) -> str:
 
 
 def ptxas_by_kernel(report: str) -> dict:
-    """{kernel: {registers, spill_stores, spill_loads}} from nvcc's
-    ``-Xptxas -v`` report."""
+    """{kernel: {registers, spill_stores, spill_loads, advice}} from
+    nvcc's ``-Xptxas -v`` report; ``advice`` lists ptxas's performance
+    advisories for the kernel (e.g. C7515: wgmma products serialized)."""
     out, cur = {}, None
     for line in report.splitlines():
+        adv = re.search(r"\((C75\d\d)\)[^']*function '(\w+)'", line)
+        if adv:
+            rec = out.setdefault(kernel_label(adv.group(2)), {})
+            rec.setdefault("advice", []).append(adv.group(1))
+            continue
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)'?", line)
         if m:
@@ -224,7 +233,7 @@ def phase_build(_build, tflash):
             kernels[name] = dict(source=src, **regs, **sass.get(name, {}))
     emit(phase="build", sources=sorted({v[0] for v in KERNELS.values()}),
          build_s=build_s, kernels=kernels)
-    for base in SM90_KERNELS:
+    for base in SM90_KERNELS.values():
         found = [k for k in kernels if k.startswith(base + "<")]
         if not found:
             fail(f"build: no {base} in the ptxas report")

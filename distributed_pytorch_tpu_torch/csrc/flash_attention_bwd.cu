@@ -43,14 +43,29 @@
 //     TFLOP/s; one warpgroup per block runs its elementwise work between
 //     the products (several blocks per SM overlap each other).
 //   * float32 -- flash_bwd_dkv_kernel: the scalar design, exact f32.
-// dQ: flash_bwd_dq_kernel, the scalar design for both dtypes, one block
-// per (q-tile of 64 rows, b * h) looping over k-tiles.
+// dQ: one block per (q-tile of 64 rows, b * h), heaviest causal tiles
+// first, looping over the forward's k-tile range (the TPU grid's
+// sequential axis and its dq scratch); GQA reads kv head hi / (h / h_kv);
+// dQ is written once, no atomics, deterministic. Two designs, by dtype:
+//   * bfloat16 -- flash_bwd_dq_kernel_sm90, the forward's structure with
+//     the dK/dV kernel's recompute: one warpgroup; thread 0 loads q, dO,
+//     lse and delta once and the k/v tiles into a ring of kDqStages
+//     stages with TMA. S = q.k^T and dP = dO.v^T are wgmma products from
+//     shared memory; each thread owns two q rows of the accumulator, so
+//     lse and delta are four registers loaded once; p and ds are formed
+//     on the f32 accumulators, ds rounded to bf16 in registers as the A
+//     operand of dQ += ds.k, whose B operand k is read MN-major from the
+//     tile S read K-major. The next k-tile's S and dP are issued right
+//     behind dQ; only tiles that cross an edge evaluate the mask per
+//     element. Bound on the H100: 6 D FLOPs per visible (query, key)
+//     pair, compute-bound at the tensor cores like dK/dV.
+//   * float32 -- flash_bwd_dq_kernel: the scalar design, exact f32.
 // The scalar kernels use 256 threads, each owning a 4 x 4 micro-tile of a
 // 64 x 64 logits tile (rows 4*ty .. 4*ty+3, cols tx + 16*j) and a 4 x D/16
 // slice of its accumulator, fed from float32 tiles in shared memory (67
 // TFLOP/s f32 peak, bounded in practice by the shared-memory loads: ~2
 // FMA per load). Every output element is summed by one thread in a fixed
-// order, so all three are deterministic.
+// order, so every kernel here is deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,18 +109,11 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // x rounded to T and widened back: the TPU kernels' `.astype(dtype)`
 // before a product.
@@ -647,42 +655,317 @@ flash_bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ---- bfloat16 dQ: wgmma + TMA ----------------------------------------
+
+// k/v ring depth of the bf16 dQ kernel, from an H100 sweep
+// (`python -m distributed_pytorch_tpu_torch.ops.flash_tile_sweep`)
+#ifndef DPX_SM90_DQ_STAGES
+#define DPX_SM90_DQ_STAGES 3
+#endif
+constexpr int kDqStages = DPX_SM90_DQ_STAGES;
+
 template <int D>
-int launch_dkv_sm90(const Params& p, int b, cudaStream_t stream) {
-  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta;
-  int rc = sm90_host::tmap_bf16(&tm_q, p.q, D, p.s_q, p.h, b, p.q_ss, p.q_sh,
-                                p.q_sb, kBQ);
+struct DqLayout {
+  static constexpr int kTile = 64 * D * 2;     // one 64-row bf16 tile
+  static constexpr int kRow = 64 * 4;          // one f32 row term
+  // q, dO, then lse and delta in a 1024-byte slot, so the ring's tiles
+  // keep the 1024-byte alignment of the 128B swizzle
+  static constexpr int kQ = 2 * kTile + 1024;
+  static constexpr int kStage = 2 * kTile;     // k, v
+  static constexpr int kBytes = kQ + kDqStages * kStage;
+  static constexpr uint32_t kQTx = 2 * kTile + 2 * kRow;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_lse,
+                         const __grid_constant__ CUtensorMap tm_delta,
+                         const Params p) {
+  using L = DqLayout<D>;
+  constexpr int kAtoms = D / sm90::kAtomCols;
+  static_assert(kBQ == 64 && kBK == 64, "one warpgroup: 64-row tiles");
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q;
+  __shared__ __align__(8) uint64_t bar_kv[kDqStages];
+  uint8_t* qs = sm90::align_1024(smem_raw);   // later: dQ staging
+  uint8_t* dos = qs + L::kTile;
+  uint8_t* rows = dos + L::kTile;             // lse, then delta
+  uint8_t* ring = qs + L::kQ;                 // stage s: k, then v
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int iq = p.n_q - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int bh = blockIdx.y;
+  const int bi = bh / p.h;
+  const int hi = bh % p.h;
+  const int hk = hi / (p.h / p.h_kv);
+  const int q0 = iq * kBQ;
+  const long long off = (long long)p.s_k - p.s_q + p.diag_offset;
+
+  // the forward's k-tile range for this q-tile
+  long long t_lo = 0, t_hi = p.n_k - 1;
+  if (p.causal) {
+    const long long last = floor_div(q0 + kBQ - 1 + off, kBK);
+    t_hi = last < t_hi ? last : t_hi;
+    if (p.window > 0) {
+      const long long first = floor_div(q0 + off - p.window + 1, kBK);
+      t_lo = first > 0 ? first : 0;
+    }
+  }
+  const int n_t = t_hi >= t_lo ? (int)(t_hi - t_lo + 1) : 0;
+
+  auto load_kv = [&](int it) {
+    const int s = it % kDqStages;
+    uint8_t* ks = ring + s * L::kStage;
+    uint8_t* vs = ks + L::kTile;
+    const int k0 = (int)(t_lo + it) * kBK;
+    sm90::mbar_expect_tx(&bar_kv[s], 2 * L::kTile);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a) {
+      sm90::tma_load_4d(ks + a * kBK * sm90::kLineBytes, &tm_k, &bar_kv[s],
+                        a * sm90::kAtomCols, k0, hk, bi);
+      sm90::tma_load_4d(vs + a * kBK * sm90::kLineBytes, &tm_v, &bar_kv[s],
+                        a * sm90::kAtomCols, k0, hk, bi);
+    }
+  };
+
+  if (tid == 0) {
+    sm90::mbar_init(&bar_q, 1);
+    for (int s = 0; s < kDqStages; ++s) sm90::mbar_init(&bar_kv[s], 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    sm90::mbar_expect_tx(&bar_q, L::kQTx);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a) {
+      sm90::tma_load_4d(qs + a * kBQ * sm90::kLineBytes, &tm_q, &bar_q,
+                        a * sm90::kAtomCols, q0, hi, bi);
+      sm90::tma_load_4d(dos + a * kBQ * sm90::kLineBytes, &tm_do, &bar_q,
+                        a * sm90::kAtomCols, q0, hi, bi);
+    }
+    sm90::tma_load_3d(rows, &tm_lse, &bar_q, q0, hi, bi);
+    sm90::tma_load_3d(rows + L::kRow, &tm_delta, &bar_q, q0, hi, bi);
+    for (int it = 0; it < kDqStages && it < n_t; ++it) load_kv(it);
+  }
+
+  // this thread's q rows (accumulator rows) r_lo and r_lo + 8, and its
+  // key columns c_q + 8 j (+ 1)
+  const int r_lo = 16 * warp + lane / 4;
+  const int c_q = 2 * (lane % 4);
+  const float scale2 = p.scale * kLog2e;   // logits in log2 units
+  const int off32 = (int)off;
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  float sc[kBK / 2], dp[kBK / 2];
+  uint32_t dsa[kBK / 16][4];
+
+  auto stage = [&](int it) { return ring + (it % kDqStages) * L::kStage; };
+  // S = q . k^T and dP = dO . v^T of k-iteration `it` (q rows x keys),
+  // one commit group each
+  auto issue_s_dp = [&](int it) {
+    const uint8_t* ks = stage(it);
+    const uint8_t* vs = ks + L::kTile;
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) sc[i] = dp[i] = 0.f;
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss<0>(sc, sm90::desc_kmajor(qs, kBQ, kk),
+                        sm90::desc_kmajor(ks, kBK, kk), 1);
+    sm90::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss<0>(dp, sm90::desc_kmajor(dos, kBQ, kk),
+                        sm90::desc_kmajor(vs, kBK, kk), 1);
+    sm90::wgmma_commit();
+  };
+
+  sm90::mbar_wait(&bar_q, 0);
+  // lse (in log2 units, negated) and delta of this thread's two rows:
+  // zeros past s_q (TMA's fill), where every element is masked
+  float nlse2[2], dlt[2];
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    nlse2[rh] = -reinterpret_cast<const float*>(rows)[r_lo + 8 * rh] * kLog2e;
+    dlt[rh] = reinterpret_cast<const float*>(rows + L::kRow)[r_lo + 8 * rh];
+  }
+
+  // Software pipeline: S and dP of k-iteration it + 1 are issued right
+  // behind dQ of iteration it, so p of it + 1 is formed while the tensor
+  // cores finish dP and dQ.
+  if (n_t > 0) {
+    sm90::mbar_wait(&bar_kv[0], 0);
+    issue_s_dp(0);
+  }
+  for (int it = 0; it < n_t; ++it) {
+    const uint8_t* ks = stage(it);
+    const int k0 = (int)(t_lo + it) * kBK;
+    // only tiles that cross an edge pay for the per-element mask; a row
+    // with no visible key (lse = _MASK, exp2 overflows to inf) lies on
+    // one, and so do the zero-filled rows past s_q (p = 1 unmasked)
+    const bool edge =
+        k0 + kBK > p.s_k || q0 + kBQ > p.s_q ||
+        (p.causal && k0 + kBK - 1 > q0 + off32 - p.causal_offset) ||
+        (p.window > 0 && k0 <= q0 + kBQ - 1 + off32 - p.window);
+
+    sm90::wgmma_wait<1>();   // S of it (and dQ of it - 1) done
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dq);
+    // k-iteration it - 1's stage is free (its dQ product has completed):
+    // refill it kDqStages ahead
+    if (it >= 1 && it - 1 + kDqStages < n_t) {
+      __syncthreads();
+      if (tid == 0) load_kv(it - 1 + kDqStages);
+    }
+
+    // p = exp(s * scale - lse), exact zeros where masked
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i)
+      sc[i] = exp2f(fmaf(sc[i], scale2, nlse2[(i % 4) / 2]));
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        const int row = q0 + r_lo + 8 * ((i % 4) / 2);    // query row
+        const int col = k0 + 8 * (i / 4) + c_q + (i % 2);  // key
+        bool masked = col >= p.s_k || row >= p.s_q;
+        if (p.causal) masked = masked || col > row + off32 - p.causal_offset;
+        if (p.window > 0) masked = masked || col <= row + off32 - p.window;
+        sc[i] = masked ? 0.f : sc[i];
+      }
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dp);
+
+    // ds = p (dP - delta) scale, rounded to bf16 as the A operand
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i)
+      dp[i] = sc[i] * (dp[i] - dlt[(i % 4) / 2]) * p.scale;
+    sm90::acc_to_a<kBK>(dp, dsa);
+
+    // dQ += ds . k, k read MN-major from the tile S read K-major (one
+    // commit group)
+    sm90::fence_regs(dq);
+    sm90::fence_regs(dsa);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      sm90::wgmma_rs<1>(dq, dsa[kk], sm90::desc_mnmajor(ks, kBK, kk), 1);
+    sm90::wgmma_commit();
+
+    if (it + 1 < n_t) {
+      sm90::mbar_wait(&bar_kv[(it + 1) % kDqStages],
+                      ((it + 1) / kDqStages) & 1);
+      issue_s_dp(it + 1);
+    } else {
+      sm90::wgmma_wait<0>();
+    }
+    sm90::fence_regs(dsa);
+  }
+  sm90::fence_regs(dq);
+
+  // epilogue: dQ in bf16 through shared memory (the q tile's space, free
+  // once every product has completed), coalesced stores of the rows
+  // before s_q
+  __syncthreads();
+  __nv_bfloat16* dqs = reinterpret_cast<__nv_bfloat16*>(qs);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int row = r_lo + 8 * rh;
+      *reinterpret_cast<__nv_bfloat162*>(
+          dqs + row * D + ((j ^ (row & 7)) * 8) + c_q) =
+          __floats2bfloat162_rn(dq[4 * j + 2 * rh], dq[4 * j + 2 * rh + 1]);
+    }
+  __syncthreads();
+  __nv_bfloat16* out =
+      static_cast<__nv_bfloat16*>(p.dq) + ((long long)bh * p.s_q + q0) * D;
+  for (int idx = tid; idx < kBQ * D / 8; idx += kWgThreads) {
+    const int row = idx / (D / 8), ch = idx % (D / 8);
+    if (q0 + row >= p.s_q) continue;
+    *reinterpret_cast<int4*>(out + (long long)row * D + ch * 8) =
+        *reinterpret_cast<const int4*>(dqs + row * D + ((ch ^ (row & 7)) * 8));
+  }
+}
+
+// The TMA descriptors of one bf16 backward launch: both kernels read the
+// same six tensors, q and dO in 64-row boxes, k and v in k-tile boxes.
+struct BwdMaps {
+  CUtensorMap q, k, v, dout, lse, delta;
+};
+
+int encode_bwd_maps(const Params& p, int b, int d, BwdMaps* m) {
+  int rc = sm90_host::tmap_bf16(&m->q, p.q, d, p.s_q, p.h, b, p.q_ss,
+                                p.q_sh, p.q_sb, kBQ);
   if (rc == 0)
-    rc = sm90_host::tmap_bf16(&tm_k, p.k, D, p.s_k, p.h_kv, b, p.k_ss,
+    rc = sm90_host::tmap_bf16(&m->k, p.k, d, p.s_k, p.h_kv, b, p.k_ss,
                               p.k_sh, p.k_sb, kBK);
   if (rc == 0)
-    rc = sm90_host::tmap_bf16(&tm_v, p.v, D, p.s_k, p.h_kv, b, p.v_ss,
+    rc = sm90_host::tmap_bf16(&m->v, p.v, d, p.s_k, p.h_kv, b, p.v_ss,
                               p.v_sh, p.v_sb, kBK);
   if (rc == 0)
-    rc = sm90_host::tmap_bf16(&tm_do, p.dout, D, p.s_q, p.h, b, p.do_ss,
+    rc = sm90_host::tmap_bf16(&m->dout, p.dout, d, p.s_q, p.h, b, p.do_ss,
                               p.do_sh, p.do_sb, kBQ);
   if (rc == 0)
-    rc = sm90_host::tmap_rows_f32(&tm_lse, p.lse, p.s_q, p.h, b, p.ld, kBQ);
+    rc = sm90_host::tmap_rows_f32(&m->lse, p.lse, p.s_q, p.h, b, p.ld, kBQ);
   if (rc == 0)
-    rc = sm90_host::tmap_rows_f32(&tm_delta, p.delta, p.s_q, p.h, b, p.ld,
+    rc = sm90_host::tmap_rows_f32(&m->delta, p.delta, p.s_q, p.h, b, p.ld,
                                   kBQ);
-  if (rc != 0) return rc;
-  const int smem = DkvLayout<D>::kBytes + 1024;  // + 1024-byte alignment
-  // the shared-memory opt-in is set once per device, not per launch
-  static unsigned long long opted_in = 0;
+  return rc;
+}
+
+// Raise `kernel`'s dynamic shared-memory cap to `smem` once per device
+// (`opted_in` holds one bit per device), not per launch.
+int opt_in_smem(const void* kernel, int smem, unsigned long long* opted_in) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || !(opted_in >> dev & 1ull)) {
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel_sm90<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) opted_in |= 1ull << dev;
-  }
+  if (dev < 64 && (*opted_in >> dev & 1ull)) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 64) *opted_in |= 1ull << dev;
+  return 0;
+}
+
+template <int D>
+int launch_dkv_sm90(const Params& p, int b, cudaStream_t stream) {
+  BwdMaps m;
+  int rc = encode_bwd_maps(p, b, D, &m);
+  if (rc != 0) return rc;
+  const int smem = DkvLayout<D>::kBytes + 1024;  // + 1024-byte alignment
+  static unsigned long long opted_in = 0;
+  rc = opt_in_smem((const void*)flash_bwd_dkv_kernel_sm90<D>, smem,
+                   &opted_in);
+  if (rc != 0) return rc;
   flash_bwd_dkv_kernel_sm90<D><<<dim3(p.n_k, b * p.h_kv), kWgThreads, smem,
-                                 stream>>>(tm_q, tm_k, tm_v, tm_do, tm_lse,
-                                           tm_delta, p);
+                                 stream>>>(m.q, m.k, m.v, m.dout, m.lse,
+                                           m.delta, p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_sm90(const Params& p, int b, cudaStream_t stream) {
+  BwdMaps m;
+  int rc = encode_bwd_maps(p, b, D, &m);
+  if (rc != 0) return rc;
+  const int smem = DqLayout<D>::kBytes + 1024;   // + 1024-byte alignment
+  static unsigned long long opted_in = 0;
+  rc = opt_in_smem((const void*)flash_bwd_dq_kernel_sm90<D>, smem,
+                   &opted_in);
+  if (rc != 0) return rc;
+  flash_bwd_dq_kernel_sm90<D><<<dim3(p.n_q, b * p.h), kWgThreads, smem,
+                                stream>>>(m.q, m.k, m.v, m.dout, m.lse,
+                                          m.delta, p);
   return (int)cudaGetLastError();
 }
 
@@ -742,7 +1025,7 @@ Params make_params(const void* q, const void* k, const void* v,
 // last axis of each is contiguous. lse and delta are (B, H, Sq) float32
 // with row stride `ld`; dq is written contiguous (B, H, Sq, D), dk and dv
 // contiguous (B, Hkv, Sk, D), all in the input type. For the bfloat16
-// dK/dV kernel (TMA) every base is 16-byte aligned, every bf16 stride but
+// kernels (TMA) every base is 16-byte aligned, every bf16 stride but
 // the last a multiple of 8 and `ld` a multiple of 4. Each returns the
 // cudaGetLastError() code of its launch (0 on success), -1 for a dtype /
 // head size these kernels do not take, -2 / -3 when libcuda offers no TMA
@@ -777,7 +1060,7 @@ extern "C" int dpx_flash_attention_bwd_dq(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && d == 64) return launch_dq<float, 64>(p, b, st);
   if (dtype == 0 && d == 128) return launch_dq<float, 128>(p, b, st);
-  if (dtype == 1 && d == 64) return launch_dq<__nv_bfloat16, 64>(p, b, st);
-  if (dtype == 1 && d == 128) return launch_dq<__nv_bfloat16, 128>(p, b, st);
+  if (dtype == 1 && d == 64) return launch_dq_sm90<64>(p, b, st);
+  if (dtype == 1 && d == 128) return launch_dq_sm90<128>(p, b, st);
   return -1;
 }

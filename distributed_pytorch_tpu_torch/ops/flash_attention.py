@@ -13,8 +13,8 @@ Hkv dividing H; outputs O (B, H, Sq, D) in the input dtype and lse
   :func:`flash_attention_bwd_cuda` the two kernels of
   ``csrc/flash_attention_bwd.cu`` (built at first use); each wrapper
   counts its launches in ``LAUNCHES``. The C entries pick the design by
-  dtype: bfloat16 runs the wgmma + TMA forward and dK/dV kernels
-  (:data:`DESIGNS`), float32 and every dQ the scalar-FMA kernels.
+  dtype (:data:`DESIGNS`): bfloat16 runs the wgmma + TMA kernels,
+  float32 the scalar-FMA ones.
 - :func:`flash_attention_with_lse` / :func:`flash_attention` validate
   the arguments as the JAX package does and go through one
   ``autograd.Function`` (the JAX ``_flash_lse`` and its ``defvjp``) that
@@ -55,7 +55,7 @@ DESIGNS = {
                             torch.float32: "scalar_fma"},
     "flash_attention_bwd_dkv": {torch.bfloat16: "wgmma+tma",
                                 torch.float32: "scalar_fma"},
-    "flash_attention_bwd_dq": {torch.bfloat16: "scalar_fma",
+    "flash_attention_bwd_dq": {torch.bfloat16: "wgmma+tma",
                                torch.float32: "scalar_fma"},
 }
 

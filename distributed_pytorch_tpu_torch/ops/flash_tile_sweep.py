@@ -4,7 +4,8 @@
 
 Builds ``csrc/flash_attention_fwd.cu`` at each (k-tile, ring depth) of
 :data:`FWD_VARIANTS` and ``csrc/flash_attention_bwd.cu`` at each dK/dV
-ring depth of :data:`DKV_VARIANTS` (one ``nvcc`` each, all at once),
+ring depth of :data:`DKV_VARIANTS` and each dQ ring depth of
+:data:`DQ_VARIANTS` (one ``nvcc`` each, all at once),
 holds every build to the plain version on a small ragged causal case,
 then times each on the device (torch.profiler kernel events of ITERS
 launches, after a warm-up: the wrapper's host time per call does not
@@ -34,6 +35,7 @@ FWD_VARIANTS = [("DPX_SM90_FWD_BK=64", "DPX_SM90_FWD_STAGES=2"),
                 ("DPX_SM90_FWD_BK=128", "DPX_SM90_FWD_STAGES=2"),
                 ("DPX_SM90_FWD_BK=128", "DPX_SM90_FWD_STAGES=3")]
 DKV_VARIANTS = [("DPX_SM90_DKV_STAGES=2",), ("DPX_SM90_DKV_STAGES=3",)]
+DQ_VARIANTS = [("DPX_SM90_DQ_STAGES=2",), ("DPX_SM90_DQ_STAGES=3",)]
 SHAPES = {"serve": (1, 12, 2048, 64), "train": (8, 12, 1024, 64)}
 ITERS = 50
 ROUNDS = 5
@@ -69,9 +71,12 @@ def _check(kind: str) -> float:
             q, k, v, causal=True)[0])
     o, lse = tflash.flash_attention_fwd_reference(q, k, v, causal=True)
     run = tflash.FlashBwdLaunch(q, k, v, o, lse, do, causal=True)
+    dq, dk, dv = tflash.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                      causal=True)
+    if kind == "dq":
+        run.launch_dq()
+        return _rel(run.dq, dq)
     run.launch_dkv()
-    _, dk, dv = tflash.flash_attention_bwd_reference(q, k, v, o, lse, do,
-                                                     causal=True)
     return max(_rel(run.dk, dk), _rel(run.dv, dv))
 
 
@@ -83,8 +88,9 @@ def _time(kind: str, inputs) -> dict:
                 q, k, v, causal=True))
         elif shape == "train":
             o, lse = tflash.flash_attention_fwd_cuda(q, k, v, causal=True)
-            out[shape] = _ms(tflash.FlashBwdLaunch(
-                q, k, v, o, lse, do, causal=True).launch_dkv)
+            run = tflash.FlashBwdLaunch(q, k, v, o, lse, do, causal=True)
+            out[shape] = _ms(run.launch_dq if kind == "dq"
+                             else run.launch_dkv)
     return out
 
 
@@ -98,7 +104,8 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     jobs = ([("fwd", tflash.KERNEL_SOURCE, d) for d in FWD_VARIANTS]
-            + [("dkv", tflash.BWD_KERNEL_SOURCE, d) for d in DKV_VARIANTS])
+            + [("dkv", tflash.BWD_KERNEL_SOURCE, d) for d in DKV_VARIANTS]
+            + [("dq", tflash.BWD_KERNEL_SOURCE, d) for d in DQ_VARIANTS])
     with ThreadPoolExecutor(len(jobs)) as pool:
         list(pool.map(lambda job: _build.build(job[1], job[2]), jobs))
     gen = torch.Generator(device="cuda").manual_seed(1)

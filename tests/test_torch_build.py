@@ -2,12 +2,17 @@
 
 A library is named by a hash of its source, every shared ``csrc/*.cuh``
 header and the compiler flags, so an edited header (the wgmma / TMA
-helpers both bf16 kernels include) never loads a stale library.
+helpers the bf16 kernels include) never loads a stale library. A kernel
+declared ``wgmma+tma`` in ``DESIGNS`` is one whose HGMMA / UTMALDG counts
+``chip_smoke.py``'s build phase checks.
 """
 
+import re
 import shutil
+from pathlib import Path
 
 import pytest
+import torch
 
 from distributed_pytorch_tpu_torch.ops import _build
 from distributed_pytorch_tpu_torch.ops import flash_attention as tflash
@@ -79,3 +84,34 @@ def test_tile_sweep_needs_a_card():
     assert flash_tile_sweep.main() == 2
     assert tflash.BUILD_DEFINES == {tflash.KERNEL_SOURCE: (),
                                     tflash.BWD_KERNEL_SOURCE: ()}
+
+
+def _global_functions(source: Path):
+    """Names of the ``__global__`` functions defined in ``source``."""
+    pattern = re.compile(r"__global__\s+void\s+"
+                         r"(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+    return set(pattern.findall(source.read_text()))
+
+
+@pytest.mark.parametrize("kernel", sorted(tflash.DESIGNS))
+def test_every_wgmma_design_is_checked_by_the_build_phase(kernel):
+    """Every bf16 kernel is declared ``wgmma+tma``, and each (kernel,
+    dtype) so declared names, in ``chip_smoke.SM90_KERNELS``, a
+    ``__global__`` function defined in its source: the build phase then
+    fails if that function shows no HGMMA or no UTMALDG, or spills."""
+    import chip_smoke
+    designs = tflash.DESIGNS[kernel]
+    assert designs[torch.bfloat16] == "wgmma+tma"
+    source = Path(chip_smoke.__file__).parent / chip_smoke.KERNELS[kernel][0]
+    for dtype, design in designs.items():
+        if design == "wgmma+tma":
+            assert chip_smoke.SM90_KERNELS[kernel] in _global_functions(
+                source), (kernel, dtype)
+
+
+def test_build_phase_checks_only_declared_kernels():
+    """No kernel is held to the wgmma checks without a declared design."""
+    import chip_smoke
+    assert set(chip_smoke.SM90_KERNELS) == {
+        name for name, designs in tflash.DESIGNS.items()
+        if "wgmma+tma" in designs.values()}

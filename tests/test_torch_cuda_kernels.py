@@ -233,9 +233,11 @@ def test_bf16_forward_reads_ragged_fused_qkv_views(cuda_device):
     torch.testing.assert_close(lse, lse_ref, atol=tol, rtol=0)
 
 
-def test_bf16_dkv_reads_ragged_fused_qkv_views(cuda_device):
-    """The dK/dV kernel on the same ragged fused-projection views, dO a
-    transposed view; every 64-row tile within BWD_TILE_TOL."""
+def test_bf16_bwd_kernels_read_ragged_fused_qkv_views(cuda_device):
+    """The dK/dV and the dQ kernel on the same ragged fused-projection
+    views, dO a transposed view: both read q, k, v and dO through TMA
+    descriptors on the views' own strides. Every 64-row tile of dQ, dK
+    and dV within BWD_TILE_TOL."""
     q, k, v, do = _fused_qkv_views(cuda_device, 2, 1000, 4, 64)
     o, lse = tflash.flash_attention_fwd_reference(q, k, v, causal=True)
     got = tflash.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
@@ -246,6 +248,29 @@ def test_bf16_dkv_reads_ragged_fused_qkv_views(cuda_device):
         g, w = g.float().cpu(), w.float().cpu()
         assert torch.isfinite(g).all(), name
         assert _tile_rel_err(g, w) <= BWD_TILE_TOL, name
+
+
+def test_bf16_dq_is_deterministic(cuda_device):
+    """Two bf16 dQ launches on the same inputs give bit-identical dQ
+    (each element is summed by one warpgroup in a fixed order, no
+    atomics): B = 2, GQA h = 12 over h_kv = 4, ragged S = 1000."""
+    q, k, v = _inputs(cuda_device, torch.bfloat16, 2, 12, 4, 1000, 1000, 64)
+    o, lse = tflash.flash_attention_fwd_cuda(q, k, v, causal=True)
+    do, _ = _cotangents(o, lse)
+    run = tflash.FlashBwdLaunch(q, k, v, o, lse, do, causal=True)
+    before = tflash.LAUNCHES["flash_attention_bwd_dq"]
+    run.launch_dq()
+    first = run.dq.clone()
+    run.dq.fill_(float("nan"))
+    run.launch_dq()
+    torch.cuda.synchronize()
+    assert tflash.LAUNCHES["flash_attention_bwd_dq"] == before + 2
+    assert torch.isfinite(first).all()
+    assert torch.equal(first, run.dq)
+    want, _, _ = tflash.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                      causal=True)
+    assert _tile_rel_err(first.float().cpu(), want.float().cpu()) <= \
+        BWD_TILE_TOL
 
 
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):

@@ -59,7 +59,28 @@ non-zero at once:
               attention, and ``remat="full"`` (24 forward launches per
               step, the same first loss);
 10. train_breakdown — one step's device time by kernel class and its
-              device-idle share.
+              device-idle share;
+11. ddp_api — ``launch`` on the card must run the worker at world >= 1
+              (world 0 is the CPU branch: a failure here); rank 0 on
+              cuda:0 sees every collective of the helper API as the
+              front-door oracle says (the world-1 identities), on CUDA
+              tensors, and ``prepare_ddp_model`` returns the model;
+12. ddp_min — the reference workload (``examples/min_ddp.py``) at
+              default flags on cuda:0, TF32 off: its 8 reduced losses
+              equal the same run on the CPU within rtol 1e-5;
+13. ddp_world2_cpu — the same workload in two CPU rank processes over
+              gloo (per-rank batch 4): the reduced loss (a SUM) over 2
+              equals the unshuffled world-1 run within rtol 2e-4 (one
+              card, and NCCL runs no two ranks on one device);
+14. ddp_train — the FLAGSHIP train config through the helper API
+              (``examples/ddp_lm.py``: SyntheticLM, data_sampler,
+              DataLoader, prepare_ddp_model, make_train_step, and per
+              step wait_for_everyone, reduce, gather): 2 warm-up and 10
+              timed steps, 12/12/12 launches per step, finite falling
+              losses, step ms, tokens/s and MFU beside the ``train``
+              phase's step ms and the difference; then 3 steps of
+              ``mixed_precision="bf16"`` from float32 masters (finite
+              losses, 12/12/12 launches, masters still float32).
 
 Then the ``kernels`` line (each kernel's design, ``wgmma+tma`` or
 ``scalar_fma``, as its bf16 path runs it; the forward at both shapes),
@@ -69,12 +90,14 @@ the nvidia-smi line and, last, the result line
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -272,14 +295,28 @@ def device_ms(torch, fn, iters: int = 20) -> float:
     """Device milliseconds per call of ``fn``: the kernel events of
     ``iters`` calls (torch.profiler) over ``iters``. Unlike cuda_ms this
     is not bounded below by the host's time to issue one call, which for
-    a ~50 us kernel behind a Python wrapper can be the larger."""
+    a ~50 us kernel behind a Python wrapper can be the larger.
+
+    The profiler can lose kernel events, which reads as a time too
+    short: every kernel must show a whole multiple of ``iters`` events
+    (its launches per call, ``iters`` times). On a shortfall it is
+    measured once more, then it fails. (A separate profile of one call
+    cannot give the count: it loses its only event at times.)"""
     fn()
     torch.cuda.synchronize()
-    times, _ = kernel_times_us(torch, lambda: [fn() for _ in range(iters)])
-    total = sum(times.values())
-    if not total > 0:
-        fail("the profiler reported no device time")
-    return total / iters / 1e3
+    for attempt in range(2):
+        times, counts, _ = kernel_times_us(
+            torch, lambda: [fn() for _ in range(iters)])
+        if counts and all(n % iters == 0 for n in counts.values()):
+            total = sum(times.values())
+            if not total > 0:
+                fail("the profiler reported no device time")
+            return total / iters / 1e3
+        print(f"chip_smoke: device_ms saw {counts} kernel events for "
+              f"{iters} calls (attempt {attempt + 1})",
+              file=sys.stderr, flush=True)
+    fail(f"device_ms: the profiler saw {counts} kernel events, not a "
+         f"multiple of {iters} calls each")
 
 
 def visible_pairs(s_q, s_k, causal=True):
@@ -623,25 +660,36 @@ def phase_serve(torch, port, tflash, device):
 
 
 def kernel_times_us(torch, fn):
-    """{kernel name: device microseconds} of the kernels ``fn`` runs
-    (torch.profiler), and the host milliseconds of the profiled call.
+    """{kernel name: device microseconds} and {kernel name: events} of
+    the kernels ``fn`` runs (torch.profiler), and the host milliseconds
+    of the profiled call.
 
-    Only the device-side kernel events count: the aten op that launched
-    a kernel also reports that kernel's time as its own self device
-    time, so a sum over every event counts each aten-launched kernel
-    twice (and a ctypes-launched one once)."""
+    ``fn`` runs twice: first in a warm-up cycle whose events the
+    profiler traces and discards (the first kernel events of a trace
+    can be lost: one run read 19 events for 20 launches, and 0 for 1),
+    then in the recorded cycle. Only the device-side kernel events
+    count: the aten op that launched a kernel also reports that
+    kernel's time as its own self device time, so a sum over every
+    event counts each aten-launched kernel twice (and a ctypes-launched
+    one once)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    times = {e.key: e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)}
-    return times, wall_ms
+        prof.step()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    return ({e.key: e.self_device_time_total for e in events},
+            {e.key: e.count for e in events}, wall_ms)
 
 
 def device_busy_ms(torch, fn) -> float:
@@ -892,9 +940,10 @@ KERNEL_CLASSES = (("flash_fwd", ("flash_fwd_kernel",)),
 
 
 def phase_train_breakdown(torch, run_step, step_ms):
-    """One FLAGSHIP step's device time by kernel class (torch.profiler)
-    and the share of the unprofiled step the device sat idle."""
-    times, wall_ms = kernel_times_us(torch, run_step)
+    """One FLAGSHIP step's device time by kernel class (torch.profiler,
+    after a warm-up step) and the share of the unprofiled step the
+    device sat idle."""
+    times, _, wall_ms = kernel_times_us(torch, run_step)
     by_class = {name: 0.0 for name, _ in KERNEL_CLASSES}
     by_class["other"] = 0.0
     other = {}
@@ -913,6 +962,176 @@ def phase_train_breakdown(torch, run_step, step_ms):
          device_busy_ms=busy, profiled_wall_ms=wall_ms, step_ms=step_ms,
          device_idle_share=max(0.0, 1 - busy / step_ms),
          top_other_ms=dict(sorted(other.items(), key=lambda kv: -kv[1])[:6]))
+
+
+def canonical(world: int) -> dict:
+    """What rank 0 must observe of the collectives when rank r holds
+    (r + 1) * [1, 2, 3]: the shared oracle of the repo's front-door
+    contract test (``tests/test_front_door_contract.py``), which this
+    script cannot import (the tests import JAX)."""
+    stack = np.stack([(r + 1.0) * np.asarray([1.0, 2.0, 3.0], np.float32)
+                      for r in range(world)])
+    return {"all_reduce_sum": stack.sum(axis=0).tolist(),
+            "all_reduce_avg": (stack.sum(axis=0) / world).tolist(),
+            "reduce_root": stack.sum(axis=0).tolist(),
+            "gather": stack.tolist(),
+            "broadcast_src1": stack[min(1, world - 1)].tolist(),
+            "invalid_op_raises": True}
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def phase_ddp_api(torch):
+    """``launch`` on the card: the worker must see world >= 1 (world 0 is
+    the CPU branch, a failure here), rank 0 on cuda:0, every collective
+    as the oracle says on CUDA tensors, and ``prepare_ddp_model``
+    wrapping iff world > 1."""
+    import distributed_pytorch_tpu_torch as dist
+    from distributed_pytorch_tpu_torch.examples import collectives
+    world = dist.device_count()
+    if world < 1:
+        fail(f"ddp_api: launch would run world {world}, the CPU branch")
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        dist.launch(collectives.main_worker, out_dir, None)
+        wall = time.perf_counter() - t0
+        obs = read_json(os.path.join(out_dir, "rank0.json"))
+    got = {"all_reduce_sum": obs["all_reduce_sum"],
+           "all_reduce_avg": obs["all_reduce_avg"],
+           "reduce_root": obs["reduce"], "gather": obs["gather"],
+           "broadcast_src1": obs["broadcast_src1"],
+           "invalid_op_raises": obs["invalid_op_raises"]}
+    checks = {
+        "world_size": obs["world_size"] == world,
+        "get_device_cuda0": obs.get("get_device") == "cuda:0",
+        "outputs_on_cuda0": obs["output_devices"] == ["cuda:0"],
+        "canonical": got == canonical(world),
+        "all_gather": obs["all_gather"] == canonical(world)["gather"],
+        "prepare_ddp_model": obs["prepare_ddp_model_wraps"] == (world > 1),
+        "params_rank0": world > 1 or obs["params_after"]
+        == obs["params_before"]}
+    emit(phase="ddp_api", world=world, backend=obs["backend"],
+         get_device=obs.get("get_device"),
+         output_devices=obs["output_devices"], checks=checks, wall_s=wall)
+    if not all(checks.values()):
+        fail(f"ddp_api: {[k for k, ok in checks.items() if not ok]} "
+             f"failed: {obs}")
+
+
+def min_ddp_history(min_ddp, argv, **kw):
+    """The primary's reduced losses of one in-process min_ddp run."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "history.json")
+        min_ddp.main_worker(0, 1, argv, quiet=True, history_path=path, **kw)
+        return read_json(path)
+
+
+def phase_ddp_min(torch):
+    """The reference workload at default flags on cuda:0 (TF32 off)
+    against the same run on the CPU: the 8 reduced losses within rtol
+    1e-5 (float32, summation order only)."""
+    from distributed_pytorch_tpu_torch.examples import min_ddp
+    t0 = time.perf_counter()
+    gpu = min_ddp_history(min_ddp, ["--device", "cuda"])
+    wall = time.perf_counter() - t0
+    cpu = min_ddp_history(min_ddp, ["--device", "cpu"])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gpu, cpu))
+    emit(phase="ddp_min", device="cuda:0", tf32=False, losses_cuda=gpu,
+         losses_cpu=cpu, max_rel_diff=rel, rtol=1e-5, cuda_wall_s=wall)
+    if len(gpu) != 8 or len(cpu) != 8 or not np.all(np.isfinite(gpu)):
+        fail(f"ddp_min: losses {gpu} vs {cpu}")
+    if not rel <= 1e-5:
+        fail(f"ddp_min: cuda and cpu losses differ by {rel} (rtol 1e-5)")
+
+
+def phase_ddp_world2_cpu(torch):
+    """min_ddp at world 2 (per-rank batch 4) in two CPU rank processes
+    over gloo: its reduced losses (a SUM) over 2 against the unshuffled
+    world-1 run at batch 8, rtol 2e-4, atol 1e-5. On the CPU because
+    this machine has one card, and NCCL runs no two ranks on one
+    device."""
+    import distributed_pytorch_tpu_torch as dist
+    from distributed_pytorch_tpu_torch.examples import min_ddp
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "history.json")
+        t0 = time.perf_counter()
+        dist.launch_multiprocess(
+            min_ddp.main_worker, 2, ["--device", "cpu", "--batch-size", "4"],
+            True, path, device="cpu", timeout_s=300)
+        wall = time.perf_counter() - t0
+        got = [v / 2 for v in read_json(path)]
+    want = min_ddp_history(min_ddp, ["--device", "cpu"], shuffle=False)
+    ok = len(got) == len(want) == 8 and np.allclose(got, want, rtol=2e-4,
+                                                     atol=1e-5)
+    emit(phase="ddp_world2_cpu", device="cpu", backend="gloo", world=2,
+         why="one card on this machine, and NCCL runs no two ranks on one "
+             "device", reduced_over_2=got, world1_unshuffled=want,
+         rtol=2e-4, atol=1e-5, wall_s=wall)
+    if not ok:
+        fail(f"ddp_world2_cpu: {got} vs {want}")
+
+
+def phase_ddp_train(torch, tflash, train_step_ms):
+    """The FLAGSHIP LM trained through the helper API
+    (``examples/ddp_lm.py``: SyntheticLM, data_sampler, DataLoader,
+    prepare_ddp_model, make_train_step, and per step wait_for_everyone,
+    reduce and gather), 2 warm-up and 10 timed steps beside the
+    ``train`` phase's step; then 3 steps of the bf16 policy from
+    float32 masters."""
+    from distributed_pytorch_tpu_torch.examples import ddp_lm
+    cfg = ddp_lm.Config(model=dict(TRAIN), seq_len=TRAIN_SEQ,
+                        batch_size=TRAIN_BATCH, data_size=2 * TRAIN_BATCH,
+                        steps=WARM_STEPS + TIMED_STEPS, warmup=WARM_STEPS,
+                        lr=TRAIN_LR, dtype="bfloat16")
+    want = {name: TRAIN["n_layers"] for name in tflash.LAUNCHES}
+    tflash.reset_launch_counts()
+    rec = ddp_lm.main_worker(0, 1, cfg)
+    per_step = {k: v / cfg.steps for k, v in tflash.LAUNCHES.items()}
+    losses = rec["losses"]
+    step_ms = rec["timed_s"] / TIMED_STEPS * 1e3
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    flops = 3 * model_flops_per_token(TRAIN["dim"], TRAIN["n_layers"],
+                                      TRAIN["vocab"], TRAIN_SEQ) \
+        * tokens_per_step
+    peak_flops, _ = peaks(torch.cuda.get_device_name(0))
+
+    mp_cfg = dataclasses.replace(cfg, dtype="float32",
+                                 mixed_precision="bf16", steps=3, warmup=0)
+    tflash.reset_launch_counts()
+    mp_rec = ddp_lm.main_worker(0, 1, mp_cfg)
+    mp_per_step = {k: v / mp_cfg.steps for k, v in tflash.LAUNCHES.items()}
+    torch.cuda.empty_cache()
+    emit(phase="ddp_train", card=torch.cuda.get_device_name(0),
+         config=dict(TRAIN, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     dtype="bfloat16", optimizer=f"adamw({TRAIN_LR})",
+                     data=f"SyntheticLM({cfg.data_size}, seed=0)"),
+         world=rec["world_size"], device=rec["device"],
+         warmup_steps=WARM_STEPS, timed_steps=TIMED_STEPS, step_ms=step_ms,
+         train_step_ms=train_step_ms, step_ms_minus_train=step_ms
+         - train_step_ms,
+         host_ms_per_step=rec["host_ms_per_step"],
+         tokens_per_sec=tokens_per_step / step_ms * 1e3,
+         mfu=flops / (step_ms / 1e3) / peak_flops,
+         launches_per_step=per_step, losses=losses,
+         reduced=rec["reduced"], gathered_last=rec["gathered"][-1],
+         bf16_policy=dict(losses=mp_rec["losses"],
+                          launches_per_step=mp_per_step,
+                          param_dtypes=mp_rec["param_dtypes"]))
+    if per_step != want:
+        fail(f"ddp_train: launches per step {per_step}, expected {want}")
+    if not (np.all(np.isfinite(losses)) and rec["reduced"] == losses
+            and len(rec["gathered"][-1]) == TRAIN_BATCH):
+        fail(f"ddp_train: losses {losses}, reduced {rec['reduced']}")
+    if not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        fail(f"ddp_train: the loss did not fall: {losses}")
+    if mp_per_step != want or not np.all(np.isfinite(mp_rec["losses"])):
+        fail(f"ddp_train bf16 policy: launches {mp_per_step}, losses "
+             f"{mp_rec['losses']}")
+    if mp_rec["param_dtypes"] != ["torch.float32"]:
+        fail(f"ddp_train bf16 policy: masters {mp_rec['param_dtypes']}")
 
 
 def main() -> int:
@@ -956,6 +1175,16 @@ def main() -> int:
     phase_train_check(torch, port, tflash, device)
     run_step, step_ms, launches = phase_train(torch, port, tflash, device)
     phase_train_breakdown(torch, run_step, step_ms)
+    del run_step
+    torch.cuda.empty_cache()
+
+    # the DDP helper API: launch and the collectives on the card, the
+    # reference workload on the card and in two gloo CPU ranks, the
+    # FLAGSHIP LM through the API
+    phase_ddp_api(torch)
+    phase_ddp_min(torch)
+    phase_ddp_world2_cpu(torch)
+    phase_ddp_train(torch, tflash, step_ms)
 
     # bf16 at the serving prefill shape (ms, library_ms) and at the
     # FLAGSHIP train shape (train_*), with the design each one ran

@@ -1,5 +1,6 @@
-"""Move ``TransformerLM`` params between the JAX param tree and the
-port's modules: ``from_jax_params`` loads, ``to_jax_params`` reads back.
+"""Move ``TransformerLM`` and ``DummyModel`` params between the JAX
+param tree and the port's modules: ``from_jax_params`` loads,
+``to_jax_params`` reads back.
 
 The JAX package's params are a nested dict/list pytree (what
 ``TransformerLM.init`` returns); pass it with every leaf as a numpy
@@ -20,7 +21,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from .models.transformer import TransformerLM
+from .models.mlp import DummyModel
 
 
 def _copy(dst: torch.nn.Parameter, src, transpose: bool = False) -> None:
@@ -46,9 +47,13 @@ def _layer_norm(mod, p: Mapping[str, Any]) -> None:
     _copy(mod.bias, p["bias"])
 
 
-def from_jax_params(params_np: Mapping[str, Any],
-                    model: TransformerLM) -> TransformerLM:
-    """Copy the JAX param tree into ``model`` in place; returns it."""
+def from_jax_params(params_np: Mapping[str, Any], model):
+    """Copy the JAX param tree into ``model`` (a ``TransformerLM`` or a
+    ``DummyModel``) in place; returns it."""
+    if isinstance(model, DummyModel):
+        _linear(model.lin1, params_np["lin1"])
+        _linear(model.lin2, params_np["lin2"])
+        return model
     if "emb" not in params_np["tok"]:
         raise ValueError("int8-quantized params are not supported yet: "
                          "pass the float param tree")
@@ -82,7 +87,7 @@ def _leaf(param: torch.nn.Parameter, grads: bool, transpose: bool = False):
     return np.ascontiguousarray(arr.T) if transpose else arr
 
 
-def to_jax_params(model: TransformerLM, grads: bool = False):
+def to_jax_params(model, grads: bool = False):
     """The JAX param tree of ``model`` as numpy arrays: the inverse of
     :func:`from_jax_params` (Linear W transposed back to (in, out)).
     With ``grads=True`` the same tree of the parameters' ``.grad``
@@ -96,6 +101,9 @@ def to_jax_params(model: TransformerLM, grads: bool = False):
     def layer_norm(mod):
         return {"scale": _leaf(mod.scale, grads),
                 "bias": _leaf(mod.bias, grads)}
+
+    if isinstance(model, DummyModel):
+        return {"lin1": linear(model.lin1), "lin2": linear(model.lin2)}
 
     tree = {"tok": {"emb": _leaf(model.tok.weight, grads)},
             "blocks": [{"ln1": layer_norm(blk.ln1),

@@ -1,0 +1,64 @@
+"""Seeded datasets, drawn with numpy exactly as the JAX package draws them.
+
+Counterpart of ``distributed_pytorch_tpu/data/datasets.py``: from one
+seed both packages hold bit-identical items. ``DummyDataset`` is the
+reference's toy set (``min_DDP.py:27-38``): feature = the sample's own
+index as a float scalar, label = a seeded random class, identical in
+every process without a broadcast. ``SyntheticImages`` and
+``SyntheticLM`` stand in for real data without a download.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+class DummyDataset:
+    """Index-as-feature toy dataset (reference ``min_DDP.py:27-38``)."""
+
+    def __init__(self, length: int, n_classes: int, seed: int = 0):
+        self.len = int(length)
+        rng = np.random.default_rng(seed)
+        self.data = np.arange(self.len, dtype=np.float32)[:, None]
+        self.labels = rng.integers(0, n_classes,
+                                   size=(self.len,)).astype(np.int32)
+
+    def __getitem__(self, idx):
+        return self.data[idx], self.labels[idx]
+
+    def __len__(self):
+        return self.len
+
+
+class SyntheticImages:
+    """Seeded fake image-classification set, NHWC float32 in [0, 1)."""
+
+    def __init__(self, length: int, shape=(32, 32, 3), n_classes: int = 10,
+                 seed: int = 0):
+        rng = np.random.default_rng(seed)
+        self.images = rng.random((length, *shape), dtype=np.float32)
+        self.labels = rng.integers(0, n_classes,
+                                   size=(length,)).astype(np.int32)
+
+    def __getitem__(self, idx):
+        return self.images[idx], self.labels[idx]
+
+    def __len__(self):
+        return len(self.labels)
+
+
+class SyntheticLM:
+    """Seeded fake next-token set: each sample is (tokens[:-1],
+    tokens[1:]) of one ``seq_len + 1`` row."""
+
+    def __init__(self, length: int, seq_len: int, vocab: int, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        self.tokens = rng.integers(0, vocab, size=(length, seq_len + 1)
+                                   ).astype(np.int32)
+
+    def __getitem__(self, idx):
+        t = self.tokens[idx]
+        return t[:-1], t[1:]
+
+    def __len__(self):
+        return len(self.tokens)

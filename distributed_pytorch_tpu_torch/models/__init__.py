@@ -2,6 +2,7 @@
 (and at the package top level); it is not re-exported here, where it
 would shadow the submodule."""
 
+from .mlp import DummyModel
 from .transformer import TransformerLM
 
-__all__ = ["TransformerLM"]
+__all__ = ["DummyModel", "TransformerLM"]

@@ -5,7 +5,8 @@ Counterpart of ``distributed_pytorch_tpu/optim/__init__.py`` (``sgd``,
 package, over a sequence of parameter tensors: ``init(params)`` returns
 the state, ``update(grads, state, params)`` writes the new parameters
 into ``params`` in place (PyTorch's habit; the JAX package returns a new
-tree) and returns the new state. The multi-tensor ``torch._foreach_*``
+tree) and returns the new state. A parameter whose gradient is ``None``
+(a frozen one) is left as it is, and so is its state. The multi-tensor ``torch._foreach_*``
 ops keep the update to a few launches per step on the card.
 
 ``torch.optim.AdamW`` is not used: with bfloat16 parameters it keeps
@@ -30,6 +31,13 @@ class Optimizer(NamedTuple):
     """update(grads, state, params) -> new_state; params updated in place"""
 
 
+def _with_grads(grads, *lists):
+    """``grads`` and each of ``lists`` restricted to the entries whose
+    gradient is not ``None``."""
+    keep = [i for i, g in enumerate(grads) if g is not None]
+    return [[seq[i] for i in keep] for seq in (grads,) + lists]
+
+
 def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
     """``p - lr * g``, or with momentum ``v = momentum * v + g`` and
     ``p - lr * v`` (velocity in the parameter dtype)."""
@@ -41,13 +49,17 @@ def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
 
     @torch.no_grad()
     def update(grads, state, params):
-        params = list(params)
-        if momentum == 0.0:
-            torch._foreach_sub_(params, torch._foreach_mul(list(grads), lr))
+        grads = list(grads)
+        if all(g is None for g in grads):
             return state
-        torch._foreach_mul_(state, momentum)
-        torch._foreach_add_(state, list(grads))
-        torch._foreach_sub_(params, torch._foreach_mul(state, lr))
+        if momentum == 0.0:
+            grads, params = _with_grads(grads, list(params))
+            torch._foreach_sub_(params, torch._foreach_mul(grads, lr))
+            return state
+        grads, params, vel = _with_grads(grads, list(params), state)
+        torch._foreach_mul_(vel, momentum)
+        torch._foreach_add_(vel, grads)
+        torch._foreach_sub_(params, torch._foreach_mul(vel, lr))
         return state
 
     return Optimizer(init, update)
@@ -76,14 +88,16 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     @torch.no_grad()
     def update(grads, state, params):
-        params = list(params)
+        grads, params, mu, nu = _with_grads(list(grads), list(params),
+                                            state.mu, state.nu)
+        if not grads:
+            return state
         step = state.step + 1
         # bias corrections in float32, as the JAX package computes them
         t = np.float32(step)
         c1 = float(np.float32(1.0) - np.float32(b1) ** t)
         c2 = float(np.float32(1.0) - np.float32(b2) ** t)
         gf = [g.to(torch.float32) for g in grads]
-        mu, nu = state.mu, state.nu
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, torch._foreach_mul(gf, 1 - b1))
         torch._foreach_mul_(nu, b2)
@@ -99,7 +113,7 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         torch._foreach_div_(upd, den)
         torch._foreach_sub_(pf, upd)
         torch._foreach_copy_(params, pf)
-        return AdamWState(step=step, mu=mu, nu=nu)
+        return AdamWState(step=step, mu=state.mu, nu=state.nu)
 
     return Optimizer(init, update)
 

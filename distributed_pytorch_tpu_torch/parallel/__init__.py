@@ -1,6 +1,8 @@
-"""Training steps of the port. Only the world-1 data-parallel step is
-ported so far (``data_parallel.make_train_step``)."""
+"""Training steps of the port: the data-parallel step at any world size,
+the bf16 policy and the DDP wrapper (``data_parallel``)."""
 
-from .data_parallel import StepOutput, make_train_step
+from .data_parallel import (DataParallel, StepOutput, make_train_step,
+                            mp_cast_params, prepare_ddp_model)
 
-__all__ = ["StepOutput", "make_train_step"]
+__all__ = ["DataParallel", "StepOutput", "make_train_step", "mp_cast_params",
+           "prepare_ddp_model"]

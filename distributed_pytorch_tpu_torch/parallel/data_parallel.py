@@ -1,55 +1,85 @@
-"""The data-parallel train step, at world 1 on one card.
+"""Data parallelism: the train step, the bf16 policy and the DDP wrapper.
 
 Counterpart of ``distributed_pytorch_tpu/parallel/data_parallel.py``
-(``StepOutput``, ``make_train_step``). The step has the JAX package's
-shape: ``step(params, opt_state, batch) -> StepOutput``, where the
-params are the ``nn.Module`` (updated in place) and ``opt_state`` is
-what ``optimizer.init(model.parameters())`` returned; the loss comes
-back as the per-rank stack of shape ``(world,)``.
+(``StepOutput``, ``make_train_step``, ``mp_cast_params``,
+``DataParallel``, ``prepare_ddp_model``), in the per-rank form of its
+host front door (``_make_host_train_step``): every rank process runs
+``step(model, opt_state, batch) -> StepOutput`` on its own local batch.
+The params are the ``nn.Module`` (updated in place), ``opt_state`` is
+what ``optimizer.init(model.parameters())`` returned, and the loss comes
+back as this rank's ``(1,)`` mean. At world > 1 the gradients are
+averaged over the ranks once per step, between backward and the
+optimizer update, so every rank applies the same update.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): world > 1 and the DDP helper API, the quantized ``grad_reduce``
-modes, ``weight_update="sharded"`` (ZeRO-1) and the ``bf16``
-mixed-precision policy.
+item): the quantized ``grad_reduce`` modes and ``weight_update=
+"sharded"`` (ZeRO-1), both Queue A item 2.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional
+import contextlib
+from typing import Any, Callable, Iterator, NamedTuple, Optional
 
 import torch
+from torch import nn
 
+from ..comm.collectives import sync_params
 from ..optim import Optimizer
+from ..runtime import context
+from ..runtime import env as _env
 
 #: grad_reduce spellings of the JAX package; only "mean" is ported.
 GRAD_REDUCE_MODES = ("mean", "int8", "quant", "q4", "adaptive")
 
-#: mixed_precision policies of the JAX package; only "off" is ported.
+#: mixed_precision policies accepted by :func:`make_train_step`.
 MP_POLICIES = ("off", "bf16")
 
 
 class StepOutput(NamedTuple):
     params: Any              # the model, its parameters updated in place
     opt_state: Any
-    loss: torch.Tensor       # (world,) per-rank mean losses
+    loss: torch.Tensor       # (1,) this rank's mean loss
     metrics: Any             # loss_fn's metrics, detached
 
 
-def _detach(tree):
-    if isinstance(tree, torch.Tensor):
-        return tree.detach()
-    if isinstance(tree, dict):
-        return {k: _detach(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_detach(v) for v in tree)
-    return tree
+@contextlib.contextmanager
+def mp_cast_params(model: nn.Module) -> Iterator[nn.Module]:
+    """Inside the block, every float32 parameter of ``model`` reads as
+    its bfloat16 cast; other parameters and all buffers are untouched.
+
+    The cast is a differentiable op of the float32 master parameter, so
+    a backward run inside the block (where a remat policy recomputes
+    the forward from the same casts) leaves float32 gradients on the
+    masters, which stay what the optimizer updates. A parameter shared
+    by several modules is cast once."""
+    casts, swapped = {}, []
+    for mod in model.modules():
+        for name, p in mod._parameters.items():
+            if p is not None and p.dtype == torch.float32:
+                if id(p) not in casts:
+                    casts[id(p)] = p.to(torch.bfloat16)
+                swapped.append((mod, name, p))
+    try:
+        for mod, name, p in swapped:
+            mod._parameters[name] = casts[id(p)]
+        yield model
+    finally:
+        for mod, name, p in swapped:
+            mod._parameters[name] = p
 
 
-def _world_size() -> int:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+def _average_grads(grads, world: int) -> None:
+    """Average ``grads`` over the ranks in place: one float32 flat
+    bucket, one ``all_reduce`` (sum), divided by ``world``."""
+    flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
+    torch.distributed.all_reduce(flat)
+    flat /= world
+    off = 0
+    for g in grads:
+        n = g.numel()
+        g.copy_(flat[off:off + n].view_as(g))
+        off += n
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
@@ -59,16 +89,24 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                     mixed_precision: Optional[str] = None) -> Callable:
     """A training step ``step(model, opt_state, batch) -> StepOutput``.
 
-    ``loss_fn(model, batch) -> (loss, metrics)`` with ``loss`` the batch
-    mean. Each call clears the gradients, runs the forward and backward,
-    applies ``optimizer.update`` to the parameters in place and returns
-    the loss as a ``(1,)`` stack (world 1).
+    ``loss_fn(model, batch) -> (loss, metrics)`` with ``loss`` the
+    local batch mean. Each call clears the gradients, runs the forward
+    and backward, averages the gradients of the parameters that require
+    them over the ranks (world > 1), applies ``optimizer.update`` in
+    place and returns the loss as a ``(1,)`` tensor. A trainable
+    parameter that the loss does not reach gets a zero gradient, as in
+    the JAX package; a frozen one (``requires_grad=False``) gets
+    ``None``, which the optimizer skips, so neither weight decay nor the
+    all-reduce touches it. Buffers are left alone.
+
+    ``mixed_precision``: ``"off"`` or ``"bf16"`` (``None`` reads
+    ``DPX_MP_POLICY``). Under ``bf16`` the forward and backward run on
+    the bf16 cast of the float32 parameters (:func:`mp_cast_params`)
+    and the float32 gradients update the float32 masters.
 
     ``donate`` is accepted for the JAX signature and changes nothing:
     the update already writes the parameters and the optimizer state in
-    place, which is what donation buys XLA. ``mixed_precision=None``
-    means ``"off"`` (the port registers no ``DPX_MP_POLICY`` until the
-    ``bf16`` policy is ported)."""
+    place, which is what donation buys XLA."""
     if grad_reduce not in GRAD_REDUCE_MODES:
         raise ValueError(f"grad_reduce must be one of {GRAD_REDUCE_MODES}, "
                          f"got {grad_reduce!r}")
@@ -83,31 +121,62 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
         raise NotImplementedError(
             "weight_update='sharded' (ZeRO-1) is not ported yet "
             "(ROADMAP.md Queue A item 2)")
-    mp = "off" if mixed_precision is None else mixed_precision
+    mp = (_env.get("DPX_MP_POLICY") if mixed_precision is None
+          else mixed_precision)
     if mp not in MP_POLICIES:
         raise ValueError(f"mixed_precision must be one of {MP_POLICIES}, "
-                         f"got {mixed_precision!r}")
-    if mp == "bf16":
-        raise NotImplementedError(
-            "mixed_precision='bf16' (f32 master, bf16 compute) is not "
-            "ported yet (ROADMAP.md Queue A item 1)")
+                         f"got {mp!r}")
     del donate
+    cast = mp_cast_params if mp == "bf16" else contextlib.nullcontext
 
     def step(model, opt_state, batch) -> StepOutput:
-        if _world_size() > 1:
-            raise NotImplementedError(
-                "make_train_step runs at world 1 in this port: the DDP "
-                "helper API and the gradient all-reduce are ROADMAP.md "
-                "Queue A item 1")
         params = list(model.parameters())
         for p in params:
             p.grad = None
-        loss, metrics = loss_fn(model, batch)
-        loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
+        with cast(model):
+            loss, metrics = loss_fn(model, batch)
+            loss.backward()
+        grads = [(p.grad if p.grad is not None else torch.zeros_like(p))
+                 if p.requires_grad else None for p in params]
+        world = context.get_world_size()
+        if world > 1:
+            _average_grads([g for g in grads if g is not None], world)
         opt_state = optimizer.update(grads, opt_state, params)
         return StepOutput(model, opt_state, loss.detach().reshape(1),
-                          _detach(metrics))
+                          context.map_tensors(torch.Tensor.detach, metrics))
 
     return step
+
+
+class DataParallel(nn.Module):
+    """``module`` prepared for data-parallel training: the result of
+    :func:`prepare_ddp_model` at world > 1.
+
+    Construction broadcasts rank 0's parameters and buffers to every
+    rank (DDP's constructor contract); ``forward`` is the module's.
+    Gradients are averaged by :func:`make_train_step`, once per step,
+    so no autograd hook is installed (wrapping in torch's
+    ``DistributedDataParallel`` as well would average them twice)."""
+
+    def __init__(self, module: nn.Module):
+        super().__init__()
+        self.module = module
+        sync_params(list(module.parameters()) + list(module.buffers()))
+
+    def forward(self, *args, **kwargs):
+        return self.module(*args, **kwargs)
+
+    def make_train_step(self, loss_fn: Callable, optimizer: Optimizer,
+                        **kw) -> Callable:
+        return make_train_step(loss_fn, optimizer, **kw)
+
+
+def prepare_ddp_model(model: nn.Module, device_ids=None, *args, **kwargs):
+    """``DataParallel(model)`` iff the world is larger than 1, else
+    ``model`` itself (reference ``distributed.py:112-115``).
+    ``device_ids`` and the rest are accepted for the reference's
+    signature: rank r's model already lives on ``cuda:r``."""
+    del device_ids, args, kwargs
+    if context.get_world_size() > 1:
+        return DataParallel(model)
+    return model

@@ -15,7 +15,7 @@ import dataclasses
 import os
 from typing import Any, Dict
 
-__all__ = ["EnvVar", "REGISTRY", "register", "get"]
+__all__ = ["EnvVar", "REGISTRY", "register", "get", "set"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +72,15 @@ def get(name: str) -> Any:
         return var.default
 
 
+def set(name: str, value: Any) -> None:
+    """Export a registered variable (stringified) to this process and
+    the processes it starts; an unregistered name raises ``KeyError``."""
+    if name not in REGISTRY:
+        raise KeyError(f"environment variable {name!r} is not registered "
+                       f"in the port's runtime/env.py")
+    os.environ[name] = str(value)
+
+
 # The JAX package's value (its measured TPU crossover). Not yet measured
 # on an H100: the flash/dense crossover of this port is open work.
 register("DPX_FLASH_MIN_SEQ", "int", 1024,
@@ -89,3 +98,26 @@ register("DPX_REMAT", "str", "none",
 # The non-paged serving engine of this slice reads no DPX_SERVE_* knob:
 # the JAX engine's reads are all of paged KV, tenant quotas or
 # speculative decoding, which this slice leaves out (ROADMAP.md).
+
+register("DPX_MP_POLICY", "str", "off",
+         "Default mixed-precision policy of `parallel.make_train_step"
+         "(mixed_precision=None)`: `off` (the parameters' own dtype "
+         "throughout) or `bf16` (forward and backward on the bf16 cast "
+         "of the float32 master parameters, which the optimizer updates).")
+
+# the per-rank process group (runtime/multiprocess.py sets these in
+# every rank process it starts; runtime/context.py reads them)
+register("DPX_MASTER_ADDR", "str", "127.0.0.1",
+         "Rendezvous address of the torch.distributed process group (the "
+         "MASTER_ADDR analog): `tcp://<addr>:<port>`.")
+register("DPX_MASTER_PORT", "int", None,
+         "Rendezvous port of the torch.distributed process group; rank 0 "
+         "serves the TCP store there. Required when a group is made.")
+register("DPX_MULTIPROC_ACCEL", "str", "",
+         "Device of a rank process: `cuda` (rank r owns cuda:r, NCCL) or "
+         "`cpu` (gloo); set by `launch_multiprocess`. Unset, a group is "
+         "made for the card when one is present and raises otherwise.")
+register("DPX_METRICS_LOG", "str", None,
+         "Line-JSON file receiving structured events: the "
+         "`worker_failure` of `launch_multiprocess` (`utils.logging."
+         "append_event`).")

@@ -1,19 +1,65 @@
-"""Line-JSON metrics logger (the port's copy of ``MetricsLogger``).
+"""Primary-only output (reference ``distributed.py:94-95, 185-187``),
+structured events, and a line-JSON metrics logger.
 
-Records go to a file and/or stdout, one JSON object per line, under one
-lock: the serving engine logs from its own thread while the submitting
-thread may log or close concurrently. The port runs one process, so
-there is no primary-rank filter yet, and only events are written: the
-per-step ``log`` of training records arrives with the training slice.
+Counterpart of ``distributed_pytorch_tpu/utils/logging.py:26-73`` and
+its ``MetricsLogger``. ``MetricsLogger`` writes records to a file and/or
+stdout, one JSON object per line, under one lock: the serving engine
+logs from its own thread while the submitting thread may log or close
+concurrently. It writes events only: the per-step ``log`` of training
+records is not ported yet.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 import threading
 import time
 from typing import Any, Dict, Optional
+
+from ..runtime import context
+from ..runtime import env as _env
+
+_event_lock = threading.Lock()
+
+
+def append_event(event: str, path: Optional[str] = None, **fields: Any
+                 ) -> bool:
+    """Append one ``{"event": ..., "time": ...}`` line to ``path``
+    (default ``$DPX_METRICS_LOG``); a no-op when neither is set. Returns
+    whether a line was written. Each record is one ``O_APPEND`` write,
+    so the lines of many rank processes sharing one file stay whole;
+    an unwritable file is not an error (the callers are failure paths,
+    which must go on to raise what failed)."""
+    path = path or _env.get("DPX_METRICS_LOG")
+    if not path:
+        return False
+    rec = {"event": event, "time": time.time(), **fields}
+    data = (json.dumps(rec, default=str) + "\n").encode()
+    try:
+        with _event_lock:
+            fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND,
+                         0o644)
+            try:
+                os.write(fd, data)
+            finally:
+                os.close(fd)
+        return True
+    except OSError:
+        return False
+
+
+def is_primary() -> bool:
+    """True on rank 0 (reference ``distributed.py:94-95``)."""
+    return context.get_rank() == 0
+
+
+def print_primary(*args, **kwargs) -> None:
+    """``print`` on the primary only (reference ``distributed.py:
+    185-187``)."""
+    if is_primary():
+        print(*args, **kwargs)
 
 
 class MetricsLogger:

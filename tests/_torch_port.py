@@ -39,3 +39,25 @@ def jax_and_port_lm(seed=0, jax_attn_fn=None, port_attn_fn=None, **kw):
 
 def to_np(t):
     return t.detach().to(torch.float32).cpu().numpy()
+
+
+def launch_cpu_ranks(worker_fn, nprocs, *args, timeout_s=120):
+    """``launch_multiprocess`` over gloo with CPU ranks, bounded by
+    ``timeout_s`` (a hung run fails with the ranks' output, which the
+    children write to the test's captured stdout/stderr). The worker is
+    a function of the port package, so the ranks import torch only.
+
+    The rendezvous port is free when picked but may be taken before
+    rank 0 binds it (tests run in parallel): that one failure is
+    retried once with a new port; any other failure raises."""
+    from distributed_pytorch_tpu_torch.runtime.multiprocess import \
+        launch_multiprocess
+    from distributed_pytorch_tpu_torch.runtime.watchdog import WorkerFailure
+
+    for attempt in range(2):
+        try:
+            return launch_multiprocess(worker_fn, nprocs, *args,
+                                       device="cpu", timeout_s=timeout_s)
+        except WorkerFailure as e:
+            if attempt or "EADDRINUSE" not in str(e):
+                raise

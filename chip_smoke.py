@@ -80,7 +80,32 @@ non-zero at once:
               losses, step ms, tokens/s and MFU beside the ``train``
               phase's step ms and the difference; then 3 steps of
               ``mixed_precision="bf16"`` from float32 masters (finite
-              losses, 12/12/12 launches, masters still float32).
+              losses, 12/12/12 launches, masters still float32);
+15. resnet_check — ``ResNet18(small_input=True)`` at full width, f32, one
+              training forward and backward of 64 CIFAR-shaped images on
+              cuda:0 (cuDNN, TF32 off) against the same weights on the
+              CPU: logits, every gradient (norm-relative: this model's
+              float32 gradients carry up to ~1e-2 of rounding on either
+              side) and the new BatchNorm state;
+16. resnet_train — ``examples/train_resnet.py`` at world 1 on cuda:0 at
+              its defaults (batch 64, 2048 synthetic images, 2 epochs,
+              SGD momentum) with ``--eval --ema 0.999``, then a window of
+              20 steps at batch 512: step ms, images/s, final loss, eval
+              accuracy (raw and EMA weights), peak memory, and one
+              step's device busy / idle share; then 3 ``--bf16`` steps
+              (finite losses, float32 running stats);
+17. lm_stack_check — ``fused_linear_cross_entropy`` at the FLAGSHIP loss
+              shape (8192 rows, d 768, vocab 32000), bf16 and f32, against
+              the plain cross-entropy of the float32 logits of the same
+              inputs: value and both gradients, with the plain bf16
+              loss's errors and both losses' device time and peak memory;
+18. lm_stack — FLAGSHIP through ``make_train_step`` with the fused loss
+              and ``with_clipping(with_schedule(adamw, warmup_cosine(3e-4,
+              2, 12)), 1.0)``: 2 warm-up and 10 timed steps, step ms, peak
+              memory and 12/12/12 launches per step, beside the same run
+              with the plain loss and ``adamw(3e-4)`` and the ``train``
+              phase's step ms; then 3 steps each of ``adafactor`` and
+              ``adamw_8bit`` (finite losses, optimizer state bytes).
 
 Then the ``kernels`` line (each kernel's design, ``wgmma+tma`` or
 ``scalar_fma``, as its bf16 path runs it; the forward at both shapes),
@@ -1134,6 +1159,340 @@ def phase_ddp_train(torch, tflash, train_step_ms):
         fail(f"ddp_train bf16 policy: masters {mp_rec['param_dtypes']}")
 
 
+RESNET_BATCH = 64
+RESNET_LOGIT_TOL = 1e-4     # x max|logit|, f32 card vs CPU
+RESNET_STATE_TOL = 1e-5     # x max(1, max|stat|)
+# ||grad_gpu - grad_cpu|| / ||grad_cpu|| per tensor: this model's float32
+# gradients are ill-conditioned, each side's standing up to 1e-2 to 5e-2
+# from float64 on some tensors (tests/test_torch_resnet.py), while a
+# wrong layout or normalization misses by ~1
+RESNET_GRAD_TOL = 5e-2
+RESNET_ARGS = ["--eval", "--ema", "0.999"]
+RESNET_BIG = ["--batch-size", "512", "--limit-steps", "20",
+              "--data-size", "10240", "--epochs", "1"]
+
+
+def phase_resnet_check(torch, port, device):
+    """One training forward and backward of ResNet18(small_input=True) at
+    batch 64 on cuda:0 and on the CPU from the same weights (f32)."""
+    from distributed_pytorch_tpu_torch.ops.losses import cross_entropy
+    gpu = port.ResNet18(small_input=True, device=device,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(3))
+    cpu = port.ResNet18(small_input=True, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.random((RESNET_BATCH, 32, 32, 3),
+                                    dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, (RESNET_BATCH,)))
+    logits = {}
+    for label, model in (("gpu", gpu), ("cpu", cpu)):
+        out = model(x)
+        cross_entropy(out, y.to(model.device)).backward()
+        logits[label] = out.detach().cpu()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(logits["gpu"]).all()):
+        fail("resnet_check: logits not finite")
+    logit_err = ((logits["gpu"] - logits["cpu"]).abs().max()
+                 / logits["cpu"].abs().max()).item()
+    grad_err, grad_max_err = {}, 0.0
+    for (name, pg), (_, pc) in zip(gpu.named_parameters(),
+                                   cpu.named_parameters()):
+        d = pg.grad.cpu() - pc.grad
+        grad_err[name] = (d.norm() / pc.grad.norm()).item()
+        grad_max_err = max(grad_max_err,
+                           (d.abs().max() / pc.grad.abs().max()).item())
+    state_err = max(((bg.cpu().double() - bc.double()).abs().max()
+                     / max(1.0, bc.double().abs().max().item())).item()
+                    for (_, bg), (_, bc) in zip(gpu.named_buffers(),
+                                                cpu.named_buffers()))
+    worst = max(grad_err, key=grad_err.get)
+    emit(phase="resnet_check", batch=RESNET_BATCH, image=[32, 32, 3],
+         dtype="float32", tf32=False, max_logit_err=logit_err,
+         logit_tol=RESNET_LOGIT_TOL, max_grad_rel_err=grad_err[worst],
+         worst_grad=worst, grad_tol=RESNET_GRAD_TOL,
+         max_grad_err_over_max_grad=grad_max_err, max_state_err=state_err,
+         state_tol=RESNET_STATE_TOL,
+         count=int(gpu.bn_stem.count.item()))
+    if not logit_err <= RESNET_LOGIT_TOL:
+        fail(f"resnet_check: logits differ by {logit_err}")
+    if not grad_err[worst] <= RESNET_GRAD_TOL:
+        fail(f"resnet_check: grad {worst} differs by {grad_err[worst]}")
+    if not state_err <= RESNET_STATE_TOL:
+        fail(f"resnet_check: BatchNorm state differs by {state_err}")
+
+
+CONV_KEYS = ("conv", "xmma", "cudnn", "implicit", "wgrad", "dgrad", "fprop",
+             "winograd")
+
+
+def resnet_busy(torch, train_resnet, argv, device):
+    """One training step of ``train_resnet``'s model at ``argv``'s batch
+    (torch.profiler, after 3 warm-up steps): device ms in all, by class
+    (cuDNN convolutions, GEMMs, the rest), and the rest's largest
+    kernels."""
+    from distributed_pytorch_tpu_torch.data import SyntheticImages
+    args = train_resnet.parse_args(argv)
+    trainer = train_resnet.make_trainer(args, device)
+    data = SyntheticImages(args.batch_size, seed=2)
+    batch = (torch.from_numpy(data.images), torch.from_numpy(data.labels))
+    for _ in range(3):
+        trainer.train_step(batch)
+    times, _, _ = kernel_times_us(torch, lambda: trainer.train_step(batch))
+    by_class = {"conv": 0.0, "gemm": 0.0, "other": 0.0}
+    other = {}
+    for name, us in times.items():
+        low = name.lower()
+        cls = ("conv" if any(k in low for k in CONV_KEYS) else
+               "gemm" if "gemm" in low else "other")
+        by_class[cls] += us / 1e3
+        if cls == "other":
+            other[name[:80]] = us / 1e3
+    top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])
+    busy = sum(by_class.values())
+    return (busy if busy > 0 else None), by_class, top
+
+
+def stat_dtype_names(tree):
+    """The dtypes of every running mean and var in a JAX-layout state."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from stat_dtype_names(val)
+        elif key in ("mean", "var"):
+            yield str(val.dtype)
+
+
+def phase_resnet_train(torch, device):
+    """train_resnet at world 1 on cuda:0: its defaults with ``--eval --ema
+    0.999``, then 20 steps at batch 512, then 3 bf16 steps."""
+    from distributed_pytorch_tpu_torch.examples import train_resnet
+    base = ["--device", "cuda"] + RESNET_ARGS
+    windows = {}
+    for label, extra in (("defaults", []), ("batch512", RESNET_BIG)):
+        argv = base + extra
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec = train_resnet.main_worker(0, 1, argv, quiet=True)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        args = train_resnet.parse_args(argv)
+        step_ms = rec["timed_s"] / rec["timed_steps"] * 1e3
+        busy, by_class, top = resnet_busy(torch, train_resnet, argv, device)
+        windows[label] = dict(
+            argv=argv, batch=args.batch_size, steps=len(rec["losses"]),
+            timed_steps=rec["timed_steps"], step_ms=step_ms,
+            images_per_s=args.batch_size / step_ms * 1e3,
+            first_loss=rec["losses"][0], final_loss=rec["losses"][-1],
+            eval_acc=rec["eval_acc"], ema_eval_acc=rec["ema_eval_acc"],
+            train_acc=rec["train_acc"], peak_memory_gb=peak, wall_s=wall,
+            device_busy_ms_per_step=busy, device_ms_by_class=by_class,
+            top_other_ms=top,
+            device_idle_share=(None if busy is None
+                               else max(0.0, 1 - busy / step_ms)))
+        if not (np.all(np.isfinite(rec["losses"])) and rec["timed_steps"]
+                and len(rec["ema_eval_acc"]) == args.epochs):
+            fail(f"resnet_train {label}: {rec['losses']} {rec['eval_acc']}")
+        if busy is None:
+            fail(f"resnet_train {label}: the profiler reported no device "
+                 "time")
+        torch.cuda.empty_cache()
+    bf16 = train_resnet.main_worker(
+        0, 1, ["--device", "cuda", "--bf16", "--epochs", "1",
+               "--limit-steps", "3"], quiet=True)
+    stat_dtypes = sorted(set(stat_dtype_names(bf16["state"])))
+    emit(phase="resnet_train", card=torch.cuda.get_device_name(0),
+         config=dict(model="ResNet18(small_input=True)", optimizer=(
+             "sgd(0.05, momentum=0.9) + with_ema(0.999)"),
+             data="SyntheticImages(seed 0), 32x32x3", dtype="float32",
+             tf32=False), windows=windows,
+         bf16=dict(losses=bf16["losses"], running_stat_dtypes=stat_dtypes))
+    if not (len(bf16["losses"]) == 3 and np.all(np.isfinite(bf16["losses"]))
+            and stat_dtypes == ["float32"]):
+        fail(f"resnet_train bf16: {bf16['losses']} {stat_dtypes}")
+
+
+LM_ROWS = TRAIN_BATCH * TRAIN_SEQ
+# fused vs the plain loss of the float32 logits of the same inputs: the
+# value from float32 sums either way (summation order only); gradients
+# in bf16 norm-relative (the softmax gradient and each result rounded to
+# bf16 once), in f32 the summation order
+FUSED_TOL = {"bfloat16": dict(value=1e-5, grad=1e-2),
+             "float32": dict(value=1e-5, grad=1e-4)}
+
+
+def phase_lm_stack_check(torch, device):
+    """fused_linear_cross_entropy at the FLAGSHIP loss shape against the
+    plain cross-entropy of float32 logits; both losses' device time (one
+    forward and backward) and peak memory at bf16."""
+    from distributed_pytorch_tpu_torch.ops.losses import (
+        cross_entropy, fused_linear_cross_entropy)
+    d, v = TRAIN["dim"], TRAIN["vocab"]
+    gen = torch.Generator(device=device).manual_seed(9)
+    h0 = torch.randn(LM_ROWS, d, device=device, generator=gen)
+    w0 = (torch.rand(v, d, device=device, generator=gen) * 2 - 1) * d ** -0.5
+    y = torch.randint(0, v, (LM_ROWS,), device=device, generator=gen)
+
+    def run(fn, h, w):
+        h, w = (t.detach().clone().requires_grad_(True) for t in (h, w))
+        loss = fn(h, w, y)
+        loss.backward()
+        return loss.detach(), h.grad, w.grad
+
+    def fused(h, w, y):
+        return fused_linear_cross_entropy(h, w, y)
+
+    def plain(h, w, y):
+        return cross_entropy(h @ w.t(), y)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tname = str(dtype).split(".")[-1]
+        h, w = h0.to(dtype), w0.to(dtype)
+        ref = run(plain, h.float(), w.float())
+        rec = {}
+        for label, fn in (("fused", fused), ("plain", plain)):
+            got = run(fn, h, w)
+            rec[label] = dict(
+                loss=got[0].item(),
+                value_rel_err=abs(got[0].item() - ref[0].item())
+                / abs(ref[0].item()),
+                dh_rel_err=rel(got[1], ref[1]), dw_rel_err=rel(got[2],
+                                                               ref[2]))
+            del got
+        tol = FUSED_TOL[tname]
+        rec["tol"] = tol
+        f = rec["fused"]
+        if not (f["value_rel_err"] <= tol["value"]
+                and f["dh_rel_err"] <= tol["grad"]
+                and f["dw_rel_err"] <= tol["grad"]):
+            fail(f"lm_stack_check {tname}: {rec}")
+        out[tname] = rec
+        del ref
+        torch.cuda.empty_cache()
+    h, w = h0.to(torch.bfloat16), w0.to(torch.bfloat16)
+    for label, fn in (("fused", fused), ("plain", plain)):
+        run(fn, h, w)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        run(fn, h, w)
+        torch.cuda.synchronize()
+        out["bfloat16"][label].update(
+            device_ms=device_busy_ms(torch, lambda: run(fn, h, w)),
+            peak_memory_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+    emit(phase="lm_stack_check", rows=LM_ROWS, dim=d, vocab=v,
+         chunk_rows=512, reference="cross_entropy of float32 logits",
+         **out)
+
+
+def state_bytes(torch, state) -> int:
+    """Bytes of every tensor in an optimizer state nest."""
+    if isinstance(state, torch.Tensor):
+        return state.numel() * state.element_size()
+    if isinstance(state, (tuple, list)):
+        return sum(state_bytes(torch, x) for x in state)
+    return 0
+
+
+def lm_loss_fused(model, tokens):
+    """``lm_loss`` through ``fused_linear_cross_entropy`` on the final
+    hidden states (``train_transformer_lm.py --fused-ce``)."""
+    from distributed_pytorch_tpu_torch.ops.losses import \
+        fused_linear_cross_entropy
+    hid = model(tokens[:, :-1], return_hidden=True)
+    return fused_linear_cross_entropy(hid, model.head_weight(),
+                                      tokens[:, 1:]), {}
+
+
+def phase_lm_stack(torch, port, tflash, device, train_step_ms):
+    """FLAGSHIP through make_train_step with the fused loss and the
+    clipped, scheduled AdamW, beside the plain loss with adamw; then 3
+    steps each of adafactor and adamw_8bit."""
+    from distributed_pytorch_tpu_torch import optim
+    from distributed_pytorch_tpu_torch.parallel import make_train_step
+    tokens = train_tokens(torch, 6, TRAIN_BATCH, device)
+    model = port.TransformerLM(dtype=torch.bfloat16, device=device,
+                               attn_fn=tflash.make_flash_attn_fn(),
+                               generator=torch.Generator(device=device)
+                               .manual_seed(0), **TRAIN)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    want = {name: TRAIN["n_layers"] for name in tflash.LAUNCHES}
+    n_steps = WARM_STEPS + TIMED_STEPS
+    stacks = {
+        "fused_clip_schedule": (lm_loss_fused, optim.with_clipping(
+            optim.with_schedule(optim.adamw, optim.warmup_cosine(
+                TRAIN_LR, WARM_STEPS, n_steps)), 1.0)),
+        "plain_adamw": (lm_loss, optim.adamw(TRAIN_LR))}
+    runs = {}
+    for label, (loss_fn, opt) in stacks.items():
+        model.load_state_dict(init)
+        step = make_train_step(loss_fn, opt)
+        state = opt.init(model.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tflash.reset_launch_counts()
+        losses = []
+        for i in range(n_steps):
+            if i == WARM_STEPS:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out = step(model, state, tokens)
+            state = out.opt_state
+            losses.append(out.loss)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+        per_step = {k: v / n_steps for k, v in tflash.LAUNCHES.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        losses = torch.cat(losses).tolist()
+        # one more step, profiled: the device's share of the step
+        busy = device_busy_ms(torch, lambda: step(model, state, tokens))
+        runs[label] = dict(step_ms=step_ms, launches_per_step=per_step,
+                           peak_memory_gb=peak, losses=losses,
+                           device_busy_ms_per_step=busy,
+                           device_idle_share=(None if busy is None else
+                                              max(0.0, 1 - busy / step_ms)),
+                           opt_state_bytes=state_bytes(torch, state))
+        del state, out
+        if per_step != want:
+            fail(f"lm_stack {label}: launches per step {per_step}")
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            fail(f"lm_stack {label}: losses {losses}")
+    others = {}
+    for label, opt in (("adafactor", optim.adafactor()),
+                       ("adamw_8bit", optim.adamw_8bit(TRAIN_LR))):
+        model.load_state_dict(init)
+        step = make_train_step(lm_loss_fused, opt)
+        state = opt.init(model.parameters())
+        losses = []
+        for _ in range(3):
+            out = step(model, state, tokens)
+            state = out.opt_state
+            losses.append(out.loss)
+        losses = torch.cat(losses).tolist()
+        others[label] = dict(losses=losses,
+                             opt_state_bytes=state_bytes(torch, state))
+        del state, out
+        if not np.all(np.isfinite(losses)):
+            fail(f"lm_stack {label}: losses {losses}")
+    del model
+    torch.cuda.empty_cache()
+    fused = runs["fused_clip_schedule"]
+    emit(phase="lm_stack", card=torch.cuda.get_device_name(0),
+         config=dict(TRAIN, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     dtype="bfloat16", loss="fused_linear_cross_entropy",
+                     optimizer=(f"with_clipping(with_schedule(adamw, "
+                                f"warmup_cosine({TRAIN_LR}, {WARM_STEPS}, "
+                                f"{n_steps})), 1.0)")),
+         warmup_steps=WARM_STEPS, timed_steps=TIMED_STEPS,
+         step_ms=fused["step_ms"], peak_memory_gb=fused["peak_memory_gb"],
+         launches_per_step=fused["launches_per_step"],
+         train_step_ms=train_step_ms, runs=runs, optimizers=others)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1185,6 +1544,13 @@ def main() -> int:
     phase_ddp_min(torch)
     phase_ddp_world2_cpu(torch)
     phase_ddp_train(torch, tflash, step_ms)
+
+    # the ResNet-18 rung (cuDNN; no kernel of the port) and the LM rung's
+    # optimizer and loss stack (the three flash kernels)
+    phase_resnet_check(torch, port, device)
+    phase_resnet_train(torch, device)
+    phase_lm_stack_check(torch, device)
+    phase_lm_stack(torch, port, tflash, device, step_ms)
 
     # bf16 at the serving prefill shape (ms, library_ms) and at the
     # FLAGSHIP train shape (train_*), with the design each one ran

@@ -19,9 +19,12 @@ Entry points run on the card unless the caller passes ``device="cpu"``:
 
 from . import api
 from .api import *  # noqa: F401,F403  (the 18 functions, api.__all__)
-from .convert import from_jax_params, to_jax_params
+from .convert import (from_jax_params, from_jax_state, to_jax_params,
+                      to_jax_state)
 from .models.generate import generate, make_generate_fn
+from .models.resnet import ResNet18
 from .models.transformer import TransformerLM
 
-__all__ = ["TransformerLM", "from_jax_params", "generate",
-           "make_generate_fn", "to_jax_params"] + api.__all__
+__all__ = ["ResNet18", "TransformerLM", "from_jax_params", "from_jax_state",
+           "generate", "make_generate_fn", "to_jax_params",
+           "to_jax_state"] + api.__all__

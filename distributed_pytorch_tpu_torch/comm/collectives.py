@@ -6,8 +6,10 @@ each rank passes its own tensor, and the collectives run on
 torch.distributed (NCCL between cards, gloo between CPU ranks). The
 reference's quirks are kept:
 
-* ``all_reduce``: ``sum``, ``avg`` (sum, then divide by the world size),
-  ``max`` or ``min``, in place; any other op raises
+* ``all_reduce``: ``sum``, ``avg`` (sum, then divide by the world size;
+  an integer tensor keeps its dtype, the quotient truncated toward zero
+  as the JAX door's float64 ``sum / world`` cast back gives it), ``max``
+  or ``min``, in place; any other op raises
   ``ValueError('"prod" is an invalid reduce operation!')``;
 * ``reduce``: a sum into rank 0's tensor; every other rank gets its own
   tensor back unchanged;
@@ -48,7 +50,10 @@ def all_reduce(tensor: torch.Tensor, op: str = "sum") -> torch.Tensor:
         return tensor
     tdist.all_reduce(tensor, op=_OPS[op])
     if op == "avg":
-        tensor /= world
+        if tensor.is_floating_point() or tensor.is_complex():
+            tensor /= world
+        else:
+            tensor.div_(world, rounding_mode="trunc")
     return tensor
 
 

@@ -6,7 +6,9 @@ passes it through ``prepare_ddp_model``. Each rank's observations go to
 ``<out_dir>/rank<r>.json`` (rank 0's are also printed), so a caller can
 hold every rank to the reference's semantics: rank 0's values, the
 other ranks' unchanged ``reduce`` buffers and zero ``gather`` lists, and
-rank 0's weights everywhere after wrapping at world > 1.
+rank 0's weights everywhere after wrapping at world > 1. An integer
+``avg`` runs on ``(r + 1) * [3, 4]``, and a ``MetricsLogger`` on
+``<out_dir>/metrics.jsonl`` logs two steps and one event per rank.
 
 Run::
 
@@ -29,6 +31,7 @@ import torch
 import distributed_pytorch_tpu_torch as dist
 from distributed_pytorch_tpu_torch.examples.min_ddp import rank_device
 from distributed_pytorch_tpu_torch.models import DummyModel
+from distributed_pytorch_tpu_torch.utils import MetricsLogger
 
 
 def rank_tensor(rank: int, device) -> torch.Tensor:
@@ -59,6 +62,10 @@ def main_worker(rank: int, world_size: int, out_dir: str,
         outs["shard_batch"] = dist.shard_batch((x.cpu(),))[0]
     for op in ("sum", "avg", "max", "min"):
         outs[f"all_reduce_{op}"] = dist.all_reduce(x.clone(), op)
+    x_int = (rank + 1) * torch.tensor([3, 4], device=dev)
+    avg_int = dist.all_reduce(x_int, "avg")
+    obs["all_reduce_avg_int64"] = avg_int.tolist()
+    obs["all_reduce_avg_int64_dtype"] = str(avg_int.dtype)
     red_in = x.clone()
     outs["reduce"] = dist.reduce(red_in, "sum")
     obs["reduce_returns_its_input"] = outs["reduce"] is red_in
@@ -87,6 +94,12 @@ def main_worker(rank: int, world_size: int, out_dir: str,
     wrapped = dist.prepare_ddp_model(model, device_ids=[rank])
     obs["prepare_ddp_model_wraps"] = wrapped is not model
     obs["params_after"] = _flat_params(wrapped)
+
+    logger = MetricsLogger(os.path.join(out_dir, "metrics.jsonl"))
+    for step in range(2):
+        logger.log(step, loss=float(step))
+    logger.event("rank_done", rank=rank)
+    logger.close()
 
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(obs, f)

@@ -3,6 +3,7 @@
 would shadow the submodule."""
 
 from .mlp import DummyModel
+from .resnet import BasicBlock, ResNet18
 from .transformer import TransformerLM
 
-__all__ = ["DummyModel", "TransformerLM"]
+__all__ = ["BasicBlock", "DummyModel", "ResNet18", "TransformerLM"]

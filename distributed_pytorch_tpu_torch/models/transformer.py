@@ -91,7 +91,8 @@ class TransformerLM(nn.Module):
 
     def __init__(self, vocab: int = 256, dim: int = 128, n_layers: int = 2,
                  n_heads: int = 4, max_seq: int = 512, mlp_ratio: int = 4,
-                 n_kv_heads: Optional[int] = None, pos: str = "learned",
+                 dropout: float = 0.0, n_kv_heads: Optional[int] = None,
+                 pos: str = "learned",
                  rope_base: float = 10000.0, tie_embeddings: bool = False,
                  attn_fn: Optional[Callable] = None,
                  remat: Union[bool, str, None] = False, dtype=torch.float32,
@@ -110,6 +111,7 @@ class TransformerLM(nn.Module):
         self.n_kv_heads = n_kv_heads if n_kv_heads is not None else n_heads
         self.max_seq = max_seq
         self.dtype = dtype
+        self.dropout = float(dropout)
         self.pos_kind = pos
         kw = dict(dtype=dtype, device=device)
         self.tok = Embedding(vocab, dim, std=dim ** -0.5,
@@ -119,7 +121,8 @@ class TransformerLM(nn.Module):
             if pos == "learned" else None
         self.blocks = nn.ModuleList([
             TransformerBlock(dim, n_heads, mlp_ratio, causal=True,
-                             n_kv_heads=n_kv_heads, rope=(pos == "rope"),
+                             dropout=dropout, n_kv_heads=n_kv_heads,
+                             rope=(pos == "rope"),
                              rope_base=rope_base, attn_fn=attn_fn,
                              generator=generator, **kw)
             for _ in range(n_layers)])
@@ -149,18 +152,29 @@ class TransformerLM(nn.Module):
             x = x + self.pos(positions)
         return x
 
-    def forward(self, tokens, positions=None, return_hidden: bool = False):
+    def forward(self, tokens, positions=None, return_hidden: bool = False,
+                generator: Optional[torch.Generator] = None):
         """tokens (B, S) int -> logits (B, S, vocab); with
         ``return_hidden`` the post-final-norm hidden states (B, S, dim)
         instead, skipping the vocab projection. Under autograd each
-        block runs through the model's remat policy."""
+        block runs through the model's remat policy.
+
+        Dropout (``dropout > 0``) acts in training mode given
+        ``generator``: it draws one seed per block, and block i's masks
+        come from a stream seeded with it (the JAX package's
+        ``fold_in(rng, i)``). At ``dropout=0.0`` nothing is drawn."""
         tokens = tokens.to(self.device, torch.long)
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=self.device)
+        seeds = [None] * len(self.blocks)
+        if generator is not None and self.training and self.dropout > 0.0:
+            seeds = torch.randint(2 ** 62, (len(self.blocks),),
+                                  generator=generator,
+                                  device=generator.device).tolist()
         x = self.embed(tokens, positions)
-        for blk in self.blocks:
+        for blk, seed in zip(self.blocks, seeds):
             x = apply_remat_policy(blk, self.remat_policy)(
-                x, positions=positions)
+                x, positions=positions, seed=seed)
         x = self.ln_f(x)
         if return_hidden:
             return x

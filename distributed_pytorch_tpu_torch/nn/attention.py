@@ -14,7 +14,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from .core import LayerNorm, Linear, gelu
+from .core import Dropout, LayerNorm, Linear, gelu
 from .rotary import apply_rope
 
 
@@ -114,10 +114,12 @@ class MultiHeadAttention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-norm block: x + MHA(LN(x)); x + MLP(LN(x)), GELU MLP."""
+    """Pre-norm block: x + MHA(LN(x)); x + MLP(LN(x)), GELU MLP, each
+    branch through ``Dropout(dropout)`` before its residual add."""
 
     def __init__(self, dim: int, n_heads: int, mlp_ratio: int = 4, *,
-                 causal: bool = False, n_kv_heads: Optional[int] = None,
+                 causal: bool = False, dropout: float = 0.0,
+                 n_kv_heads: Optional[int] = None,
                  rope: bool = False, rope_base: float = 10000.0,
                  attn_fn: Optional[Callable] = None, dtype=torch.float32,
                  device=None, generator: Optional[torch.Generator] = None):
@@ -131,12 +133,21 @@ class TransformerBlock(nn.Module):
         self.ln2 = LayerNorm(dim, **kw)
         self.fc1 = Linear(dim, mlp_ratio * dim, generator=generator, **kw)
         self.fc2 = Linear(mlp_ratio * dim, dim, generator=generator, **kw)
+        self.drop = Dropout(dropout)
 
     def mlp(self, x):
-        """LN -> fc1 -> GELU -> fc2 (no residual); shared by forward and
-        the cached decode path."""
+        """LN -> fc1 -> GELU -> fc2 (no residual, no dropout); shared by
+        forward and the cached decode path."""
         return self.fc2(gelu(self.fc1(self.ln2(x))))
 
-    def forward(self, x, positions=None):
-        x = x + self.attn(self.ln1(x), positions=positions)
-        return x + self.mlp(x)
+    def forward(self, x, positions=None, seed: Optional[int] = None):
+        """``seed`` seeds this call's dropout stream on ``x``'s device
+        (both masks, attention's then the MLP's, come from it), so a
+        rematerialized forward draws the same masks; without one,
+        dropout is off."""
+        gen = None
+        if seed is not None and self.training and self.drop.rate > 0.0:
+            gen = torch.Generator(device=x.device).manual_seed(seed)
+        h = self.attn(self.ln1(x), positions=positions)
+        x = x + self.drop(h, generator=gen)
+        return x + self.drop(self.mlp(x), generator=gen)

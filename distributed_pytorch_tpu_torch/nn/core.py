@@ -1,5 +1,6 @@
-"""Core layers of the port: ``Linear``, ``Embedding``, ``LayerNorm`` and
-``gelu`` as ``torch.nn`` modules.
+"""Core layers of the port: ``Linear``, ``Embedding``, ``LayerNorm``,
+``Dropout`` and ``Sequential`` as ``torch.nn`` modules, and ``relu`` and
+``gelu``.
 
 Counterpart of ``distributed_pytorch_tpu/nn/core.py``. Initialization
 follows the same schemes (fan-in uniform for Linear weight and bias,
@@ -15,7 +16,7 @@ package stores W as (in, out); ``convert.py`` transposes.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -78,6 +79,48 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return F.layer_norm(x, (self.dim,), self.scale, self.bias, self.eps)
+
+
+class Dropout(nn.Module):
+    """Dropout with an explicit ``torch.Generator``: in training, with
+    ``rate > 0`` and a generator, each element is kept with probability
+    ``1 - rate`` and scaled by ``1 / (1 - rate)``; otherwise the identity
+    (the JAX package drops only given ``rng=`` and ``train=True``)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if not self.training or self.rate <= 0.0 or generator is None:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+
+class Sequential(nn.Module):
+    """Named chain of modules: ``layers`` is a sequence of ``(name,
+    module)`` pairs, each registered under its name (the JAX package's
+    param tree nests under the same names). Keyword arguments of the
+    call go to every layer."""
+
+    def __init__(self, layers: Sequence[Tuple[str, nn.Module]]):
+        super().__init__()
+        self.names = [name for name, _ in layers]
+        for name, mod in layers:
+            self.add_module(name, mod)
+
+    def forward(self, x, **kwargs):
+        for name in self.names:
+            x = getattr(self, name)(x, **kwargs)
+        return x
+
+
+def relu(x):
+    return F.relu(x)
 
 
 def gelu(x):

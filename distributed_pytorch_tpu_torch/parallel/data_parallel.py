@@ -1,10 +1,14 @@
-"""Data parallelism: the train step, the bf16 policy and the DDP wrapper.
+"""Data parallelism: the train steps, the eval steps, the bf16 policy and
+the DDP wrapper.
 
 Counterpart of ``distributed_pytorch_tpu/parallel/data_parallel.py``
-(``StepOutput``, ``make_train_step``, ``mp_cast_params``,
-``DataParallel``, ``prepare_ddp_model``), in the per-rank form of its
-host front door (``_make_host_train_step``): every rank process runs
-``step(model, opt_state, batch) -> StepOutput`` on its own local batch.
+(``StepOutput``, ``make_train_step``, ``StatefulStepOutput``,
+``make_stateful_train_step``, ``make_eval_step``,
+``make_stateful_eval_step``, ``stack_state``, ``make_scan_train_steps``,
+``mp_cast_params``, ``DataParallel``, ``prepare_ddp_model``), in the
+per-rank form of its host front door (``_make_host_train_step``): every
+rank process runs ``step(model, opt_state, batch) -> StepOutput`` on its
+own local batch.
 The params are the ``nn.Module`` (updated in place), ``opt_state`` is
 what ``optimizer.init(model.parameters())`` returned, and the loss comes
 back as this rank's ``(1,)`` mean. At world > 1 the gradients are
@@ -13,7 +17,7 @@ optimizer update, so every rank applies the same update.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): the quantized ``grad_reduce`` modes and ``weight_update=
-"sharded"`` (ZeRO-1), both Queue A item 2.
+"sharded"`` (ZeRO-1), both ROADMAP.md Queue A item 5.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Any, Callable, Iterator, NamedTuple, Optional
 import torch
 from torch import nn
 
-from ..comm.collectives import sync_params
+from ..comm.collectives import all_gather, sync_params
 from ..optim import Optimizer
 from ..runtime import context
 from ..runtime import env as _env
@@ -41,6 +45,14 @@ class StepOutput(NamedTuple):
     opt_state: Any
     loss: torch.Tensor       # (1,) this rank's mean loss
     metrics: Any             # loss_fn's metrics, detached
+
+
+class StatefulStepOutput(NamedTuple):
+    params: Any              # the model, its parameters updated in place
+    state: Any               # the model's buffers (BatchNorm running stats)
+    opt_state: Any
+    loss: torch.Tensor       # (1,) this rank's mean loss
+    metrics: Any
 
 
 @contextlib.contextmanager
@@ -113,14 +125,14 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     if grad_reduce != "mean":
         raise NotImplementedError(
             f"grad_reduce={grad_reduce!r} is not ported yet (the quantized "
-            f"gradient wire: ROADMAP.md Queue A item 2)")
+            f"gradient wire: ROADMAP.md Queue A item 5)")
     if weight_update not in (None, "replicated", "sharded"):
         raise ValueError(f"weight_update must be replicated|sharded, got "
                          f"{weight_update!r}")
     if weight_update == "sharded":
         raise NotImplementedError(
             "weight_update='sharded' (ZeRO-1) is not ported yet "
-            "(ROADMAP.md Queue A item 2)")
+            "(ROADMAP.md Queue A item 5)")
     mp = (_env.get("DPX_MP_POLICY") if mixed_precision is None
           else mixed_precision)
     if mp not in MP_POLICIES:
@@ -146,6 +158,120 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                           context.map_tensors(torch.Tensor.detach, metrics))
 
     return step
+
+
+@contextlib.contextmanager
+def _mode(model: nn.Module, train: bool) -> Iterator[None]:
+    """``model`` in training (``train``) or eval mode inside the block,
+    its previous mode restored after."""
+    was = model.training
+    model.train(train)
+    try:
+        yield
+    finally:
+        model.train(was)
+
+
+def make_stateful_train_step(loss_fn: Callable, optimizer: Optimizer,
+                             donate: Optional[bool] = None,
+                             **kw) -> Callable:
+    """:func:`make_train_step` for a model with state that is not trained
+    (BatchNorm running stats): ``step(model, opt_state, batch) ->
+    StatefulStepOutput``, the model in training mode for the step (its
+    previous mode restored after), ``state`` its buffers by name after
+    the step (BatchNorm ``mean``, ``var`` and ``count``: the tensors
+    themselves).
+
+    ``loss_fn(model, batch) -> (loss, metrics)``: the forward updates the
+    running stats in place from this rank's local batch. Nothing syncs
+    them across the ranks, as in torch DDP and the JAX package's
+    per-device state; the gradients are averaged once per step, as in
+    :func:`make_train_step`, whose step this one runs."""
+    inner = make_train_step(loss_fn, optimizer, donate=donate, **kw)
+
+    def step(model, opt_state, batch) -> StatefulStepOutput:
+        with _mode(model, True):
+            out = inner(model, opt_state, batch)
+        return StatefulStepOutput(out.params, dict(model.named_buffers()),
+                                  out.opt_state, out.loss, out.metrics)
+
+    return step
+
+
+def _gather_ranks(metrics):
+    """Every rank's ``metrics`` concatenated along axis 0 in rank order,
+    on every rank: one ``all_gather`` of all the leaves packed into one
+    float64 buffer (exact for the bool, int32 and float32 leaves an eval
+    step returns), cast back to each leaf's dtype."""
+    leaves = []
+    context.map_tensors(leaves.append, metrics)
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in leaves])
+    rows = all_gather(flat)                      # (world, n)
+    out, off = [], 0
+    for t in leaves:
+        n = t.numel()
+        out.append(rows[:, off:off + n].reshape((-1,) + tuple(t.shape[1:]))
+                   .to(t.dtype))
+        off += n
+    it = iter(out)
+    return context.map_tensors(lambda _: next(it), metrics)
+
+
+def make_eval_step(eval_fn: Callable) -> Callable:
+    """An evaluation step ``step(model, batch) -> metrics``: no
+    gradients, no update, the model in eval mode (its previous mode
+    restored after). ``eval_fn(model, batch)`` returns per-example
+    tensors (leading axis the local batch); at world > 1 the step returns
+    every rank's in rank order, concatenated along axis 0, on every rank
+    (the JAX step's global layout)."""
+
+    def step(model, batch):
+        with torch.no_grad(), _mode(model, False):
+            metrics = eval_fn(model, batch)
+        if context.get_world_size() > 1:
+            metrics = _gather_ranks(metrics)
+        return metrics
+
+    return step
+
+
+def make_stateful_eval_step(eval_fn: Callable) -> Callable:
+    """:func:`make_eval_step` for a model with state: in eval mode the
+    BatchNorm layers normalize with this rank's running stats (the
+    model's buffers) and leave them unchanged."""
+    return make_eval_step(eval_fn)
+
+
+def stack_state(state, world: Optional[int] = None):
+    """Each tensor of ``state`` repeated along a new leading axis of
+    size ``world`` (default: the group's): every rank's state in one
+    place, each starting from the same values."""
+    w = world or context.get_world_size()
+    return context.map_tensors(
+        lambda t: t.unsqueeze(0).expand((w,) + tuple(t.shape)).clone(),
+        state)
+
+
+def make_scan_train_steps(loss_fn: Callable, optimizer: Optimizer,
+                          n_steps: int, donate: Optional[bool] = None,
+                          **kw) -> Callable:
+    """``n_steps`` training steps in one call: ``run(model, opt_state,
+    batches) -> (model, opt_state, losses)``, where every tensor of
+    ``batches`` holds the steps' local batches stacked on a leading
+    ``n_steps`` axis and ``losses`` is ``(n_steps, 1)``, this rank's
+    loss per step. Each step is :func:`make_train_step`'s."""
+    step = make_train_step(loss_fn, optimizer, donate=donate, **kw)
+
+    def run(model, opt_state, batches):
+        losses = []
+        for t in range(n_steps):
+            out = step(model, opt_state,
+                       context.map_tensors(lambda b: b[t], batches))
+            opt_state = out.opt_state
+            losses.append(out.loss)
+        return model, opt_state, torch.stack(losses)
+
+    return run
 
 
 class DataParallel(nn.Module):

@@ -1,12 +1,10 @@
 """Primary-only output (reference ``distributed.py:94-95, 185-187``),
 structured events, and a line-JSON metrics logger.
 
-Counterpart of ``distributed_pytorch_tpu/utils/logging.py:26-73`` and
-its ``MetricsLogger``. ``MetricsLogger`` writes records to a file and/or
-stdout, one JSON object per line, under one lock: the serving engine
-logs from its own thread while the submitting thread may log or close
-concurrently. It writes events only: the per-step ``log`` of training
-records is not ported yet.
+Counterpart of ``distributed_pytorch_tpu/utils/logging.py`` and its
+``MetricsLogger``, which writes records to a file and/or stdout, one
+JSON object per line, under one lock: the serving engine logs from its
+own thread while the submitting thread may log or close concurrently.
 """
 
 from __future__ import annotations
@@ -63,22 +61,44 @@ def print_primary(*args, **kwargs) -> None:
 
 
 class MetricsLogger:
-    """Structured metrics: line-JSON to a file and/or stdout."""
+    """Structured metrics: line-JSON to a file and/or stdout. The file is
+    opened on the primary only; ``log`` writes there (and echoes) on the
+    primary only, ``event`` on every rank."""
 
     def __init__(self, path: Optional[str] = None, echo: bool = False):
         self.path = path
         self.echo = echo
         self._lock = threading.Lock()
-        self._fh = open(path, "a") if path is not None else None
+        self._fh = (open(path, "a") if path is not None and is_primary()
+                    else None)
+
+    def log(self, step: int, **metrics: Any) -> None:
+        """One ``{"step": ..., "time": ..., **metrics}`` record, on the
+        primary only (numbers such as numpy scalars write as floats)."""
+        if not is_primary():
+            return
+        rec: Dict[str, Any] = {"step": step, "time": time.time(), **metrics}
+        line = json.dumps(rec, default=float)
+        with self._lock:
+            if self._fh is not None:
+                self._fh.write(line + "\n")
+                self._fh.flush()
+            if self.echo:
+                sys.stdout.write(line + "\n")
 
     def event(self, event: str, **fields: Any) -> None:
-        """Structured non-step event (e.g. ``serve_request``)."""
+        """Structured non-step event (e.g. ``serve_request``), written on
+        every rank: off the primary it is appended to the file as one
+        write (``append_event``), since the primary may not live to
+        write a failure."""
         rec: Dict[str, Any] = {"event": event, "time": time.time(), **fields}
         line = json.dumps(rec, default=str)
         with self._lock:
             if self._fh is not None:
                 self._fh.write(line + "\n")
                 self._fh.flush()
+            elif self.path is not None:
+                append_event(event, path=self.path, **fields)
             if self.echo:
                 sys.stdout.write(line + "\n")
 

@@ -8,7 +8,10 @@ gloo, with CPU ranks spawned from the port's own
 own: ``reduce`` leaves rank 1's buffer alone, ``gather`` gives rank 1
 zeros, an invalid op raises, ``launch`` takes the world-0/1/N branches,
 and ``prepare_ddp_model`` wraps iff world > 1, broadcasting rank 0's
-weights. All comparisons are exact.
+weights. An integer ``avg`` keeps its dtype and truncates, as the JAX
+host door does, and ``MetricsLogger`` writes ``log`` lines on the
+primary only and ``event`` lines on every rank. All comparisons are
+exact.
 """
 
 import json
@@ -43,12 +46,23 @@ def _as_canonical(obs):
             "invalid_op_raises": obs["invalid_op_raises"]}
 
 
+def _metrics(out_dir):
+    with open(out_dir / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
 @pytest.fixture(scope="module")
-def world2(tmp_path_factory):
-    """Both ranks' observations of one 2-rank gloo run."""
+def world2_dir(tmp_path_factory):
+    """The output directory of one 2-rank gloo run."""
     out = tmp_path_factory.mktemp("collectives_w2")
     launch_cpu_ranks(collectives.main_worker, 2, str(out), "cpu")
-    return [_read(out, r) for r in range(2)]
+    return out
+
+
+@pytest.fixture(scope="module")
+def world2(world2_dir):
+    """Both ranks' observations of that run."""
+    return [_read(world2_dir, r) for r in range(2)]
 
 
 @pytest.mark.parametrize("world", [0, 1])
@@ -64,6 +78,10 @@ def test_world1_matches_canonical(world, tmp_path):
     assert obs["reduce_returns_its_input"]
     assert not obs["prepare_ddp_model_wraps"]
     assert obs["params_after"] == obs["params_before"]
+    assert obs["all_reduce_avg_int64"] == [3, 4]
+    lines = _metrics(tmp_path)
+    assert [m.get("step") for m in lines] == [0, 1, None]
+    assert lines[2]["event"] == "rank_done" and lines[2]["rank"] == 0
 
 
 def test_world2_gloo_matches_canonical(world2):
@@ -89,6 +107,26 @@ def test_world2_every_rank_agrees_on_the_all_collectives(world2):
         assert obs["sync_params"] == rank_tensor(0).tolist()
         assert obs["replicate"] == rank_tensor(0).tolist()
         assert obs["shard_batch"] == rank_tensor(obs["rank"]).tolist()
+
+
+def test_integer_avg_truncates_at_world2(world2):
+    """Rank inputs [3, 4] and [6, 8]: the sum [9, 12] over 2 is [4.5, 6],
+    truncated to [4, 6] in int64 (the JAX host door's float64 mean cast
+    back)."""
+    for obs in world2:
+        assert obs["all_reduce_avg_int64"] == [4, 6]
+        assert obs["all_reduce_avg_int64_dtype"] == "torch.int64"
+
+
+def test_metrics_logger_logs_on_the_primary_and_events_on_every_rank(
+        world2_dir):
+    lines = _metrics(world2_dir)
+    logs = [m for m in lines if "step" in m]
+    events = [m for m in lines if "event" in m]
+    assert [m["step"] for m in logs] == [0, 1]
+    assert [m["loss"] for m in logs] == [0.0, 1.0]
+    assert sorted(m["rank"] for m in events) == [0, 1]
+    assert all(m["event"] == "rank_done" for m in events)
 
 
 def test_reduce_leaves_rank1_buffer_untouched(world2):

@@ -59,7 +59,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, distributed_pytorch_tpu_torch, "
             "distributed_pytorch_tpu_torch.serve, "
             "distributed_pytorch_tpu_torch.ops.flash_attention, "
-            "distributed_pytorch_tpu_torch.ops.decode_attention\n"
+            "distributed_pytorch_tpu_torch.ops.decode_attention, "
+            "distributed_pytorch_tpu_torch.examples.train_resnet\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
             "m.startswith(('jax.', 'jaxlib.')) or "
             "m == 'distributed_pytorch_tpu' or "
@@ -76,4 +77,6 @@ def test_entry_points_raise_without_cuda_and_without_device(monkeypatch):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port.TransformerLM()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port.ResNet18()
     assert resolve_device("cpu") == torch.device("cpu")

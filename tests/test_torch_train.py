@@ -275,11 +275,11 @@ def test_train_step_rejects_unported_modes():
     world > 1 are ported: tests/test_torch_ddp_train.py.)"""
     opt = optim.sgd(0.1)
     for mode in ("quant", "int8", "q4", "adaptive"):
-        with pytest.raises(NotImplementedError, match="Queue A item 2"):
+        with pytest.raises(NotImplementedError, match="Queue A item 5"):
             make_train_step(_train_loss_fn_port, opt, grad_reduce=mode)
     with pytest.raises(ValueError):
         make_train_step(_train_loss_fn_port, opt, grad_reduce="bogus")
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
         make_train_step(_train_loss_fn_port, opt, weight_update="sharded")
     with pytest.raises(ValueError):
         make_train_step(_train_loss_fn_port, opt, weight_update="bogus")

@@ -105,7 +105,31 @@ non-zero at once:
               memory and 12/12/12 launches per step, beside the same run
               with the plain loss and ``adamw(3e-4)`` and the ``train``
               phase's step ms; then 3 steps each of ``adafactor`` and
-              ``adamw_8bit`` (finite losses, optimizer state bytes).
+              ``adamw_8bit`` (finite losses, optimizer state bytes);
+19. lm_trainer — ``examples/train_transformer_lm.py`` at world 1 at the
+              FLAGSHIP width (dim 768, 12 layers, 12 heads, seq 1024,
+              batch 8, bf16, flash, the byte vocabulary of 256) on the
+              card machine's own Python standard library as ``--text``,
+              with ``--prefetch 2 --eval --generate 16 --log``: run 1
+              trains 10 steps saving every 5, run 2 resumes to 15, run 3
+              trains 15 uninterrupted; runs 2 and 3 must give the same
+              losses for steps 10-14, exactly. Step ms, tokens/s and MFU
+              (run 3), 12/12/12 launches per step, async save and
+              restore wall and the checkpoint's bytes, the prefetch
+              worker's host ms per batch beside the unprefetched path's,
+              eval nll and the generated bytes; a 4th run (no prefetch,
+              ``--trace``) gives one step's device busy time;
+20. serve_paged (run after ``breakdown``, on its model) — the model behind
+              ``InferenceEngine(n_slots=4, max_len=2048, paged=True)``
+              (page_len 16): eight greedy requests of a shared
+              1024-token system prompt plus distinct 32-256-token tails,
+              32 new tokens each; the streams must equal the contiguous
+              engine's token for token, the prefix hit rate must be > 0,
+              and after retirement no page may keep a reader and every
+              page must return to the free list once the prefix index
+              is emptied. TTFT/TPOT p50/p99, tokens/s, peak pages in
+              use, pool bytes, and one 4-slot paged decode step's device
+              busy / idle share beside the contiguous engine's.
 
 Then the ``kernels`` line (each kernel's design, ``wgmma+tma`` or
 ``scalar_fma``, as its bf16 path runs it; the forward at both shapes),
@@ -122,6 +146,7 @@ import re
 import shutil
 import subprocess
 import sys
+import sysconfig
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -1493,6 +1518,231 @@ def phase_lm_stack(torch, port, tflash, device, train_step_ms):
          train_step_ms=train_step_ms, runs=runs, optimizers=others)
 
 
+# the trainer's FLAGSHIP-width flags; the byte corpus is the card
+# machine's standard library (real text, nothing downloaded)
+LM_TRAINER = ["--device", "cuda", "--dim", "768", "--n-layers", "12",
+              "--n-heads", "12", "--seq-len", "1024", "--batch-size", "8",
+              "--bf16", "--flash", "--log-every", "5"]
+LM_TRAINER_RUN = ["--prefetch", "2", "--eval", "--generate", "16"]
+
+
+def phase_lm_trainer(torch, tflash, device, train_step_ms):
+    """``train_transformer_lm.main_worker`` at world 1: save at 10 steps,
+    resume to 15, against 15 uninterrupted steps; then a traced run."""
+    from distributed_pytorch_tpu_torch.examples import train_transformer_lm
+    tmp = tempfile.mkdtemp(prefix="lm_trainer_")
+    ck = os.path.join(tmp, "ck")
+    base = LM_TRAINER + ["--text", sysconfig.get_paths()["stdlib"]]
+
+    def run(tag, extra):
+        t0 = time.perf_counter()
+        rec = train_transformer_lm.main_worker(
+            0, 1, base + extra + ["--log", os.path.join(tmp, tag)],
+            quiet=True)
+        rec["wall_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return rec
+
+    try:
+        r1 = run("run1", LM_TRAINER_RUN + ["--steps", "10", "--save", ck,
+                                           "--save-every", "5"])
+        r2 = run("run2", LM_TRAINER_RUN + ["--steps", "15", "--save", ck,
+                                           "--resume"])
+        tflash.reset_launch_counts()
+        r3 = run("run3", LM_TRAINER_RUN + ["--steps", "15"])
+        launches = dict(tflash.LAUNCHES)
+        r4 = run("run4", ["--steps", "11", "--trace",
+                          os.path.join(tmp, "trace")])
+        with open(r4["trace_path"]) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    busy_ms = sum(e.get("dur", 0) for e in events
+                  if e.get("cat") == "kernel") / 1e3 / r4["trace_steps"]
+    steps = 15
+    eval_batches = r3["eval_batches"]
+    per_step = {"flash_attention_fwd":
+                (launches["flash_attention_fwd"] - 12 * eval_batches) / steps,
+                "flash_attention_bwd_dkv":
+                launches["flash_attention_bwd_dkv"] / steps,
+                "flash_attention_bwd_dq":
+                launches["flash_attention_bwd_dq"] / steps}
+    step_ms = r3["timed_s"] / r3["timed_steps"] * 1e3
+    tokens_per_step = 8 * 1024
+    flops = 3 * model_flops_per_token(768, 12, 256, 1024) * tokens_per_step
+    peak_flops, _ = peaks(torch.cuda.get_device_name(0))
+    resumed, uninterrupted = r2["losses"], r3["losses"][10:15]
+    gen = bytes(r3["generated"]).decode(errors="replace")
+    saves = r1["ckpt_saves"]
+    emit(phase="lm_trainer", card=torch.cuda.get_device_name(0),
+         argv=base + LM_TRAINER_RUN, train_windows=len(r3["losses"]),
+         step_ms=step_ms, timed_steps=r3["timed_steps"],
+         train_step_ms=train_step_ms,
+         tokens_per_sec=tokens_per_step / step_ms * 1e3,
+         mfu=flops / (step_ms / 1e3) / peak_flops, flops_per_step=flops,
+         device_busy_ms_per_step=busy_ms,
+         device_idle_share=max(0.0, 1 - busy_ms / step_ms),
+         traced_steps=r4["trace_steps"], launches=launches,
+         launches_per_step=per_step, eval_batches=eval_batches,
+         losses_run1=r1["losses"], losses_run2=resumed,
+         losses_run3=r3["losses"], resume_start_step=r2["start_step"],
+         resume_max_abs_diff=max(abs(a - b) for a, b in
+                                 zip(resumed, uninterrupted)),
+         save_call_s=r1["save_call_s"],
+         save_write_s=[x["duration_s"] for x in saves],
+         save_snapshot_s=[x["snapshot_s"] for x in saves],
+         checkpoint_bytes=saves[-1]["bytes"], restore_s=r2["restore_s"],
+         prefetch_worker_ms_per_batch=r3["prefetch_worker_ms_per_batch"],
+         prefetch_wait_ms_per_batch=r3["data_ms_per_batch"],
+         unprefetched_ms_per_batch=r4["data_ms_per_batch"],
+         eval_nll=r3["eval_nll"], generated=gen,
+         wall_s=[r["wall_s"] for r in (r1, r2, r3, r4)])
+    if any(n != 12 for n in per_step.values()):
+        fail(f"lm_trainer: launches per step {per_step}")
+    if r2["start_step"] != 10 or resumed != uninterrupted:
+        fail(f"lm_trainer: resumed losses {resumed} vs uninterrupted "
+             f"{uninterrupted}")
+    if not (np.all(np.isfinite(r1["losses"] + r3["losses"]))
+            and np.isfinite(r3["eval_nll"])
+            and len(r3["generated"]) == 16 and r1["losses"] == r3["losses"][:10]
+            and len(saves) == 3 and saves[-1]["bytes"] > 0):
+        fail(f"lm_trainer: run 1 {r1['losses']} run 3 {r3['losses']} "
+             f"eval {r3.get('eval_nll')} saves {saves}")
+    return per_step
+
+
+SYSTEM_PROMPT, PAGED_TAILS = 1024, (32, 64, 96, 128, 160, 192, 224, 256)
+
+
+def phase_serve_paged(torch, model):
+    """The serve phase's model behind the paged engine: a shared system
+    prompt, eight tails, greedy; against the contiguous engine."""
+    from distributed_pytorch_tpu_torch.models.generate import \
+        decode_step_slots
+    from distributed_pytorch_tpu_torch.serve import (EngineConfig,
+                                                     InferenceEngine,
+                                                     SamplingParams,
+                                                     aggregate)
+    from distributed_pytorch_tpu_torch.serve.cache import SlotPool
+    from distributed_pytorch_tpu_torch.serve.pages import PagedSlotPool
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, FLAGSHIP["vocab"], SYSTEM_PROMPT)
+    prompts = [np.concatenate([system, rng.integers(
+        0, FLAGSHIP["vocab"], n)]).astype(np.int32) for n in PAGED_TAILS]
+    sp = SamplingParams(max_new_tokens=MAX_NEW)
+
+    def serve(paged):
+        cfg = EngineConfig(n_slots=4, max_len=2048, paged=paged)
+        with InferenceEngine(model, cfg) as eng:   # warm-up, not measured
+            eng.submit(rng.integers(0, FLAGSHIP["vocab"], 300),
+                       SamplingParams(max_new_tokens=2)).result(timeout=900)
+        eng = InferenceEngine(model, cfg)
+        peak = [0]
+
+        def watch(tok, i):
+            if paged:
+                peak[0] = max(peak[0], eng.pool.pool.pages_in_use)
+        t0 = time.perf_counter()
+        with eng:
+            hs = [eng.submit(p, sp, on_token=watch) for p in prompts]
+            outs = [h.result(timeout=900) for h in hs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return eng, hs, outs, wall, peak[0]
+
+    eng, hs, outs, wall, peak = serve(True)
+    ceng, chs, couts, cwall, _ = serve(False)
+    agg = aggregate([h.metrics for h in hs], wall_s=wall)
+    cagg = aggregate([h.metrics for h in chs], wall_s=cwall)
+    ps = eng.stats()["pages"]
+    pool = eng.pool.pool
+    live_after = pool.live_pages()
+    resident = pool.pages_in_use
+    while (pid := eng.pool.index.evict_lru(pool)) is not None:
+        pool.reclaim(pid)
+        pool.release_to_free(pid)
+    free_after_drain = pool.free_pages
+    same = [bool(np.array_equal(a, b)) for a, b in zip(outs, couts)]
+    first_diff = [None if ok else int(np.argmax(a != b))
+                  for ok, a, b in zip(same, outs, couts)]
+
+    # one 4-slot decode step of each pool, after four admissions
+    buckets = eng.buckets
+    ppool = PagedSlotPool(model, 4, 2048, page_len=ps["page_len"],
+                          n_pages=ps["n_pages"])
+    cpool = SlotPool(model, 4, 2048)
+    toks = torch.zeros(4, dtype=torch.long, device=model.device)
+    active = np.ones(4, bool)
+    with torch.inference_mode():
+        for slot, p in enumerate(prompts[:4]):
+            ppool.admit(p, slot, buckets)
+            padded = torch.zeros((1, 2048), dtype=torch.long,
+                                 device=model.device)
+            padded[0, :len(p)] = torch.from_numpy(p.astype(np.int64))
+            cpool.admit(padded[:, :2048], len(p), slot)
+
+        def paged_step():
+            for slot in range(4):
+                ppool.ensure_decode_capacity(slot)
+            ppool.decode(toks, active)
+
+        def contiguous_step():
+            decode_step_slots(model, cpool.ks, cpool.vs, cpool.lengths,
+                              toks)
+
+        steps = {}
+        for label, fn in (("paged", paged_step),
+                          ("contiguous", contiguous_step)):
+            fn()
+            torch.cuda.synchronize()
+            ts = []
+            for _ in range(5):
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t) * 1e3)
+            wall_ms = sorted(ts)[2]
+            busy = device_busy_ms(torch, fn)
+            steps[label] = dict(wall_ms=wall_ms, device_busy_ms=busy,
+                                device_idle_share=(
+                                    None if busy is None
+                                    else max(0.0, 1 - busy / wall_ms)))
+    del ppool, cpool
+    torch.cuda.empty_cache()
+    emit(phase="serve_paged", card=torch.cuda.get_device_name(0),
+         system_prompt=SYSTEM_PROMPT, tails=list(PAGED_TAILS),
+         max_new=MAX_NEW, streams_equal_contiguous=same,
+         first_differing_token=first_diff,
+         ttft_ms_p50=agg["ttft_ms_p50"], ttft_ms_p99=agg["ttft_ms_p99"],
+         tpot_ms_p50=agg["tpot_ms_p50"], tpot_ms_p99=agg["tpot_ms_p99"],
+         tokens_per_sec=agg["tokens_per_sec"], wall_s=wall,
+         contiguous=dict(ttft_ms_p50=cagg["ttft_ms_p50"],
+                         ttft_ms_p99=cagg["ttft_ms_p99"],
+                         tpot_ms_p50=cagg["tpot_ms_p50"],
+                         tpot_ms_p99=cagg["tpot_ms_p99"],
+                         tokens_per_sec=cagg["tokens_per_sec"],
+                         wall_s=cwall),
+         prefix_hit_pages=[h.metrics["prefix_hit_pages"] for h in hs],
+         prefill_tokens_saved=ps["prefill_tokens_saved"],
+         prefix_hit_rate=ps["prefix_hit_rate"], peak_pages_in_use=peak,
+         n_pages=ps["n_pages"], page_len=ps["page_len"],
+         kv_pool_bytes=ps["kv_pool_bytes"],
+         bytes_per_resident_token=ps["bytes_per_resident_token"],
+         live_pages_after=live_after, resident_pages_after=resident,
+         free_pages_after_index_drain=free_after_drain,
+         prefill_admits=eng.stats()["prefill_admits"],
+         decode_step_4slots=steps)
+    if not all(same):
+        fail(f"serve_paged: streams differ from the contiguous engine "
+             f"({same})")
+    if not (ps["prefix_hit_rate"] or 0) > 0:
+        fail(f"serve_paged: no prefix hits {ps}")
+    if live_after != 0 or free_after_drain != ps["n_pages"]:
+        fail(f"serve_paged: {live_after} live pages after retirement, "
+             f"{free_after_drain} of {ps['n_pages']} free after draining "
+             "the index")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1525,7 +1775,10 @@ def main() -> int:
                       device)
     model, pool = phase_serve(torch, port, tflash, device)
     phase_breakdown(torch, model, pool, timing["ms"])
-    del model, pool
+    del pool
+    torch.cuda.empty_cache()
+    phase_serve_paged(torch, model)
+    del model
     torch.cuda.empty_cache()
 
     # training runs PyTorch's default bf16 GEMM reduction (the serving
@@ -1551,6 +1804,10 @@ def main() -> int:
     phase_resnet_train(torch, device)
     phase_lm_stack_check(torch, device)
     phase_lm_stack(torch, port, tflash, device, step_ms)
+
+    # the LM trainer example end to end: checkpoint and resume, device
+    # prefetch, eval, generation and a trace
+    trainer_per_step = phase_lm_trainer(torch, tflash, device, step_ms)
 
     # bf16 at the serving prefill shape (ms, library_ms) and at the
     # FLAGSHIP train shape (train_*), with the design each one ran
@@ -1585,6 +1842,7 @@ def main() -> int:
             plain_and_library_compute="dq+dk+dv")
     for name, row in rows.items():
         row["design"] = tflash.DESIGNS[name][torch.bfloat16]
+        row["lm_trainer_launches_per_step"] = trainer_per_step[name]
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=launches[name], **row)

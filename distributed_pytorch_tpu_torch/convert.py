@@ -19,7 +19,8 @@ array (``jax.tree_util.tree_map(np.asarray, params)``). Layout changes:
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+import dataclasses
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
@@ -143,20 +144,20 @@ def _leaf(param: torch.Tensor, grads: bool, transpose: bool = False,
     return np.ascontiguousarray(arr)
 
 
-def to_jax_params(model, grads: bool = False):
-    """The JAX param tree of ``model`` as numpy arrays: the inverse of
-    :func:`from_jax_params` (Linear W transposed back to (in, out)).
-    With ``grads=True`` the same tree of the parameters' ``.grad``
-    (zeros where a parameter has none); bfloat16 reads as float32."""
+def _jax_tree(model, leaf):
+    """The JAX param tree of ``model`` with ``leaf(param, transpose,
+    perm)`` at every leaf: how each parameter turns into its JAX leaf
+    (Linear W transposed back to (in, out), conv kernels permuted back
+    to HWIO)."""
     def linear(mod):
-        out = {"w": _leaf(mod.weight, grads, transpose=True)}
+        out = {"w": leaf(mod.weight, True, None)}
         if mod.bias is not None:
-            out["b"] = _leaf(mod.bias, grads)
+            out["b"] = leaf(mod.bias, False, None)
         return out
 
     def norm(mod):
-        return {"scale": _leaf(mod.scale, grads),
-                "bias": _leaf(mod.bias, grads)}
+        return {"scale": leaf(mod.scale, False, None),
+                "bias": leaf(mod.bias, False, None)}
 
     if isinstance(model, DummyModel):
         return {"lin1": linear(model.lin1), "lin2": linear(model.lin2)}
@@ -164,17 +165,17 @@ def to_jax_params(model, grads: bool = False):
         tree = {}
         for path, mod in _resnet_modules(model):
             if isinstance(mod, Conv2d):
-                leaf = {"w": _leaf(mod.weight, grads, perm=_TO_HWIO)}
+                node = {"w": leaf(mod.weight, False, _TO_HWIO)}
                 if mod.bias is not None:
-                    leaf["b"] = _leaf(mod.bias, grads)
+                    node["b"] = leaf(mod.bias, False, None)
             elif isinstance(mod, BatchNorm2d):
-                leaf = norm(mod)
+                node = norm(mod)
             else:
-                leaf = linear(mod)
-            _put(tree, path, leaf)
+                node = linear(mod)
+            _put(tree, path, node)
         return tree
 
-    tree = {"tok": {"emb": _leaf(model.tok.weight, grads)},
+    tree = {"tok": {"emb": leaf(model.tok.weight, False, None)},
             "blocks": [{"ln1": norm(blk.ln1),
                         "attn": {"qkv": linear(blk.attn.qkv),
                                  "out": linear(blk.attn.out)},
@@ -183,10 +184,51 @@ def to_jax_params(model, grads: bool = False):
                        for blk in model.blocks],
             "ln_f": norm(model.ln_f)}
     if model.pos is not None:
-        tree["pos"] = {"emb": _leaf(model.pos.weight, grads)}
+        tree["pos"] = {"emb": leaf(model.pos.weight, False, None)}
     if model.head is not None:
         tree["head"] = linear(model.head)
     return tree
+
+
+def to_jax_params(model, grads: bool = False):
+    """The JAX param tree of ``model`` as numpy arrays: the inverse of
+    :func:`from_jax_params` (Linear W transposed back to (in, out)).
+    With ``grads=True`` the same tree of the parameters' ``.grad``
+    (zeros where a parameter has none); bfloat16 reads as float32."""
+    return _jax_tree(model, lambda p, transpose, perm: _leaf(
+        p, grads, transpose=transpose, perm=perm))
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSlot:
+    """Where one of ``model.parameters()`` sits in the JAX param tree."""
+
+    index: int                  # its position in ``model.parameters()``
+    transpose: bool             # a Linear W: (out, in) here, (in, out) there
+    perm: Optional[tuple]       # a conv kernel: OIHW here -> HWIO there
+
+    def to_jax(self, t: torch.Tensor) -> torch.Tensor:
+        """A tensor laid out like the parameter, in the JAX layout."""
+        if self.transpose:
+            return t.t()
+        return t.permute(self.perm) if self.perm is not None else t
+
+    def from_jax(self, t: torch.Tensor) -> torch.Tensor:
+        """The inverse of :meth:`to_jax`."""
+        if self.transpose:
+            return t.t()
+        if self.perm is not None:
+            return t.permute(_TO_OIHW)
+        return t
+
+
+def jax_param_slots(model):
+    """The JAX param tree of ``model`` with a :class:`ParamSlot` at each
+    leaf: the map between the port's parameter list (the order of
+    optimizer states) and the JAX package's param paths."""
+    index = {id(p): i for i, p in enumerate(model.parameters())}
+    return _jax_tree(model, lambda p, transpose, perm: ParamSlot(
+        index[id(p)], transpose, perm))
 
 
 _STATS = ("mean", "var", "count")

@@ -1,9 +1,11 @@
-"""Data of the port: seeded datasets, the sharded sampler and the
-per-rank loader."""
+"""Data of the port: seeded datasets, the sharded sampler, the
+per-rank loader and device prefetching."""
 
 from .datasets import DummyDataset, SyntheticImages, SyntheticLM
 from .loader import DataLoader, default_collate
+from .prefetch import DevicePrefetcher, PrefetchLoader, device_prefetch
 from .sampler import ShardedSampler, data_sampler
 
-__all__ = ["DataLoader", "DummyDataset", "ShardedSampler", "SyntheticImages",
-           "SyntheticLM", "data_sampler", "default_collate"]
+__all__ = ["DataLoader", "DevicePrefetcher", "DummyDataset", "PrefetchLoader",
+           "ShardedSampler", "SyntheticImages", "SyntheticLM",
+           "data_sampler", "default_collate", "device_prefetch"]

@@ -58,8 +58,14 @@ class DataLoader:
         return np.arange(n)
 
     def __iter__(self) -> Iterator:
+        return self.iter_from(0)
+
+    def iter_from(self, start_batch: int) -> Iterator:
+        """This epoch's batches from batch index ``start_batch`` on: the
+        earlier ones are skipped at the index level (no dataset reads,
+        no collation), so a resume fast-forwards for free."""
         idx, b = self._indices(), self.batch_size
-        for t in range(len(self)):
+        for t in range(start_batch, len(self)):
             yield self.collate([self.dataset[int(i)]
                                 for i in idx[t * b:(t + 1) * b]])
 

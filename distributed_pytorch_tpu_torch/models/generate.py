@@ -1,8 +1,8 @@
 """Autoregressive generation with a KV cache — the inference path.
 
 Counterpart of ``distributed_pytorch_tpu/models/generate.py`` (the
-contiguous-cache functions; paged, speculative and quantized variants
-wait for later slices). The JAX package compiles prefill and a
+contiguous-cache functions and the paged pool's decode and prefill;
+speculative and quantized variants wait for later slices). The JAX package compiles prefill and a
 ``lax.scan`` of decode steps into two XLA programs with the cache as an
 immutable carry; PyTorch runs eagerly, so here the decode loop is a
 Python loop and the cache tensors are preallocated once and written IN
@@ -30,7 +30,8 @@ import torch
 
 from ..nn.attention import dense_attention
 from ..ops.decode_attention import (DECODE_BLOCK, blockwise_decode_attention,
-                                    dense_decode_attention, resident_blocks)
+                                    _rows, dense_decode_attention,
+                                    paged_decode_attention, resident_blocks)
 from ..runtime.device import default_generator
 from .transformer import TransformerLM
 
@@ -224,6 +225,154 @@ def decode_step_slots(model: TransformerLM, ks, vs, lengths, tokens,
         x = x + blk.attn.project_out(o)
         x = x + blk.mlp(x)
     return model.project_vocab(model.ln_f(x))[:, 0], ks, vs
+
+
+def _no_kv_bits(kv_bits) -> None:
+    if kv_bits is not None:
+        raise NotImplementedError(
+            f"kv_bits={kv_bits!r} (quantized KV pages) is not ported yet "
+            "(ROADMAP.md Queue A item 4.1, KV quantization)")
+
+
+def _pool_writes(pages: np.ndarray, n_pages: int, keep: np.ndarray):
+    """Which rows write the pool: ``keep`` and a page id inside the pool.
+    The JAX package scatters with ``mode="drop"``; an out-of-range id
+    here never reaches ``index_put_``."""
+    return np.nonzero(keep & (pages >= 0) & (pages < n_pages))[0]
+
+
+def decode_step_slots_paged(model: TransformerLM, k_pages, v_pages, tables,
+                            lengths, tokens, active, *, page_len: int,
+                            blockwise: bool = True, kv_bits=None
+                            ) -> Tuple[torch.Tensor, list, list]:
+    """One decode step over a PAGED slot pool (``serve/pages/``).
+
+    K/V live in a shared pool, per layer ``(n_pages, Hkv, page_len,
+    Dh)``, and row b addresses its cache through ``tables[b]`` (host
+    (B, P) ints: position j at page ``tables[b, j // page_len]``, offset
+    ``j % page_len``). Shared full pages are safe because decode writes
+    only each row's private tail page: this step's K/V at ``lengths[b]``,
+    for ``active`` rows only (host bool; inactive rows and out-of-range
+    page ids write nothing). The math per row is
+    :func:`decode_step_slots`'s, with the pool written in place.
+
+    Attention visits only the resident pages
+    (:func:`..ops.decode_attention.paged_decode_attention`, trip count
+    from the host ``lengths``), ``DECODE_BLOCK`` positions per step
+    where ``page_len`` divides it: the blocks of the contiguous decode,
+    whose sums it then repeats bit for bit (one page per step, the JAX
+    loop, changed 2 of 8 greedy bf16 streams of the FLAGSHIP-width model
+    on an H100). ``blockwise=False`` gathers the whole table and runs
+    the dense softmax (the reference). Returns
+    ``(logits (B, vocab), k_pages, v_pages)``; page allocation and the
+    lengths' advance belong to the caller. Quantized pools
+    (``kv_bits``) are not ported yet and raise."""
+    _no_kv_bits(kv_bits)
+    dev = model.device
+    tables = np.asarray(tables, np.int64)
+    lengths = np.asarray(lengths, np.int64)
+    active = np.asarray(active, bool)
+    n_pages = k_pages[0].shape[0]
+    bsz = tables.shape[0]
+    idx = torch.as_tensor(lengths, device=dev)
+    # an out-of-range id reads a clamped page, as JAX's gather does
+    tables_t = torch.as_tensor(np.clip(tables, 0, n_pages - 1), device=dev)
+    tokens = _as_tokens(model, tokens)
+    x = model.embed(tokens[:, None], idx[:, None])
+    scale = 1.0 / math.sqrt(model.dim // model.n_heads)
+    # the pool write of each active row: its page holding position idx
+    wp = tables[np.arange(bsz), np.minimum(lengths // page_len,
+                                           tables.shape[1] - 1)]
+    rows = _pool_writes(wp, n_pages, active)
+    rows_t = torch.as_tensor(rows, device=dev)
+    dest_p = torch.as_tensor(wp[rows], device=dev)
+    dest_o = torch.as_tensor(lengths[rows] % page_len, device=dev)
+    # whole DECODE_BLOCKs of pages per step where the page divides it:
+    # the contiguous decode's blocks, so both pools sum alike
+    block_pages = (DECODE_BLOCK // page_len
+                   if DECODE_BLOCK % page_len == 0 else 1)
+    n_blocks = resident_blocks(lengths, block_pages * page_len,
+                               -(-tables.shape[1] // block_pages))
+    width = tables.shape[1] * page_len
+    for i, blk in enumerate(model.blocks):
+        hq, hk, hv = blk.attn.project_qkv(blk.ln1(x))
+        hq, hk = blk.attn.maybe_rope(hq, hk, idx[:, None, None])
+        kp, vp = k_pages[i], v_pages[i]
+        kp[dest_p, :, dest_o] = hk[rows_t, :, 0].to(kp.dtype)
+        vp[dest_p, :, dest_o] = hv[rows_t, :, 0].to(vp.dtype)
+        if blockwise:
+            o = paged_decode_attention(hq, kp, vp, tables_t, idx, hk, hv,
+                                       scale=scale, page_len=page_len,
+                                       n_blocks=n_blocks,
+                                       block_pages=block_pages)
+        else:
+            pos = torch.arange(width, device=dev)
+            wm = (pos[None, :] == idx[:, None])[:, None, :, None]
+            k = torch.where(wm, hk.to(kp.dtype), _rows(kp[tables_t]))
+            v = torch.where(wm, hv.to(vp.dtype), _rows(vp[tables_t]))
+            o = dense_decode_attention(hq, k, v, pos[None, :] <= idx[:, None],
+                                       scale=scale)
+        x = x + blk.attn.project_out(o)
+        x = x + blk.mlp(x)
+    return model.project_vocab(model.ln_f(x))[:, 0], k_pages, v_pages
+
+
+def prefill_partial_paged(model: TransformerLM, k_pages, v_pages, table_row,
+                          tokens, offset: int, true_len: int, *,
+                          page_len: int, kv_bits=None
+                          ) -> Tuple[torch.Tensor, list, list]:
+    """Prefill the TAIL of a prompt into pool pages, attending over a
+    page-resident shared prefix (``serve/pages/``).
+
+    ``tokens`` (1, S) is the right-padded tail: the prompt minus its
+    ``offset`` prefix tokens, whose K/V already sit in the pages
+    ``table_row`` (host (P,) ints) names. ``offset`` is page-aligned
+    (only full pages are shared) and ``true_len`` >= 1 is the real tail
+    length; both are host ints. Tail queries run at global positions
+    ``offset + i`` and attend over [the prefix's K/V | the tail's],
+    causally, through the model's own attention core (``attn_fn`` with
+    ``s_k - s_q = offset``): a dense model computes JAX's masked
+    softmax; a flash model dispatches as the contiguous prefill does,
+    so a cold admission is that prefill's very computation. The real
+    tail positions' K/V go into the slot's own pages (the shared prefix
+    pages are never written). Returns ``(logits (1, vocab) at the last
+    real position, k_pages, v_pages)``."""
+    _no_kv_bits(kv_bits)
+    tokens = _as_tokens(model, tokens)
+    s = tokens.shape[1]
+    dev = model.device
+    table_row = np.asarray(table_row, np.int64)
+    n_pages = k_pages[0].shape[0]
+    n_prefix = offset // page_len
+    positions = torch.arange(offset, offset + s, device=dev)
+    # the padded tail may run past max_seq (offset + bucket); its rows
+    # are causally inert, so a learned table reads its last row there,
+    # as JAX's clamping gather does, instead of indexing out of range
+    x = model.embed(tokens, positions.clamp_max(model.max_seq - 1))
+    tail_pos = offset + np.arange(true_len)
+    pages = table_row[np.minimum(tail_pos // page_len, len(table_row) - 1)]
+    keep = _pool_writes(pages, n_pages, np.ones(true_len, bool))
+    keep_t = torch.as_tensor(keep, device=dev)
+    dest_p = torch.as_tensor(pages[keep], device=dev)
+    dest_o = torch.as_tensor(tail_pos[keep] % page_len, device=dev)
+    prefix_ids = torch.as_tensor(table_row[:n_prefix], device=dev)
+    for i, blk in enumerate(model.blocks):
+        hq, hk, hv = blk.attn.project_qkv(blk.ln1(x))
+        hq, hk = blk.attn.maybe_rope(hq, hk, positions)
+        kp, vp = k_pages[i], v_pages[i]
+        if n_prefix:
+            pk = _rows(kp[prefix_ids[None]]).to(hk.dtype)
+            pv = _rows(vp[prefix_ids[None]]).to(hv.dtype)
+            k_all, v_all = torch.cat([pk, hk], 2), torch.cat([pv, hv], 2)
+        else:
+            k_all, v_all = hk, hv
+        o = blk.attn.attn_fn(hq, k_all, v_all, causal=True)
+        kp[dest_p, :, dest_o] = hk[0, :, keep_t].transpose(0, 1).to(kp.dtype)
+        vp[dest_p, :, dest_o] = hv[0, :, keep_t].transpose(0, 1).to(vp.dtype)
+        x = x + blk.attn.project_out(o)
+        x = x + blk.mlp(x)
+    x_last = model.ln_f(x[:, true_len - 1:true_len])
+    return model.project_vocab(x_last)[:, 0], k_pages, v_pages
 
 
 def _filter_logits(logits, temperature: float, top_k: Optional[int],

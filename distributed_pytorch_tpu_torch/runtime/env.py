@@ -95,9 +95,24 @@ register("DPX_REMAT", "str", "none",
          "(save matmul outputs only, recompute elementwise — "
          "torch.utils.checkpoint with a selective policy).")
 
-# The non-paged serving engine of this slice reads no DPX_SERVE_* knob:
-# the JAX engine's reads are all of paged KV, tenant quotas or
-# speculative decoding, which this slice leaves out (ROADMAP.md).
+# -- serving: the paged KV pool (serve/pages/); tenant quotas and
+# speculative decoding are not ported yet (ROADMAP.md Queue A item 4)
+register("DPX_SERVE_PAGE_LEN", "int", 16,
+         "Tokens per KV page of the paged serving cache "
+         "(serve/pages/; only full pages are prefix-shared).")
+register("DPX_SERVE_N_PAGES", "int", 0,
+         "Total pages of the paged serving KV pool (0 = derive "
+         "n_slots*ceil(max_len/page_len), the same KV budget the "
+         "contiguous slot pool would preallocate).")
+register("DPX_SERVE_PREFIX_SHARE", "bool", True,
+         "Enable radix prefix sharing in the paged serving cache "
+         "(refcounted reuse of resident full prompt pages; 0 = paged "
+         "layout without sharing).")
+register("DPX_SERVE_KV_DTYPE", "str", "f32",
+         "Resident storage of the paged serving KV pool: `f32` (exact "
+         "pages in the model's dtype); `q8` and `q4` (block-quantized "
+         "pages) are not ported yet and raise. Ignored by non-paged "
+         "engines.")
 
 register("DPX_MP_POLICY", "str", "off",
          "Default mixed-precision policy of `parallel.make_train_step"

@@ -1,12 +1,15 @@
-"""Continuous-batching serving of the port (non-paged engine)."""
+"""Continuous-batching serving of the port: the engine over the
+contiguous slot pool or the paged, prefix-shared KV pool."""
 
 from .engine import EngineConfig, InferenceEngine
 from .metrics import aggregate, percentile, request_record
-from .types import (AdmissionRejected, EngineStopped,
+from .pages import PagedSlotPool, PagePool, PrefixIndex
+from .types import (AdmissionRejected, EngineStopped, PagePoolExhausted,
                     RequestDeadlineExceeded, RequestHandle, SamplingParams,
                     ServeError)
 
 __all__ = ["AdmissionRejected", "EngineConfig", "EngineStopped",
-           "InferenceEngine", "RequestDeadlineExceeded", "RequestHandle",
-           "SamplingParams", "ServeError", "aggregate", "percentile",
-           "request_record"]
+           "InferenceEngine", "PagePool", "PagePoolExhausted",
+           "PagedSlotPool", "PrefixIndex", "RequestDeadlineExceeded",
+           "RequestHandle", "SamplingParams", "ServeError", "aggregate",
+           "percentile", "request_record"]

@@ -17,8 +17,14 @@ Determinism contract: a request's stream equals a standalone
 the same state (the engine draws its sampling noise from the request's
 own ``torch.Generator``, one draw per token, as ``generate`` does).
 
-Left for later slices: paged KV, speculative decoding, KV quantization,
-tenant quotas, fault-injection hooks and metric gauges.
+``EngineConfig(paged=True)`` serves from the paged, prefix-shared KV
+pool (``serve/pages/``): identical prompt prefixes are computed once,
+pool exhaustion is typed back-pressure at admission and a typed
+per-request failure mid-decode, and the pool's page stats go into
+``stats()`` and the metrics log.
+
+Left for later slices: speculative decoding, KV quantization, tenant
+quotas and fault-injection hooks.
 """
 
 from __future__ import annotations
@@ -32,14 +38,16 @@ import numpy as np
 import torch
 
 from ..models.generate import _check_attn_compatible, _model_window, _sample
+from ..runtime import env as _env
 from ..runtime.device import default_generator
 from ..utils.logging import MetricsLogger
 from .cache import SlotPool
 from .metrics import request_record
+from .pages import PagedSlotPool
 from .scheduler import AdmissionScheduler
-from .types import (FAILED, FINISHED, RUNNING, AdmissionRejected,
-                    EngineStopped, Request, RequestDeadlineExceeded,
-                    RequestHandle, SamplingParams)
+from .types import (FAILED, FINISHED, QUEUED, RUNNING, AdmissionRejected,
+                    EngineStopped, PagePoolExhausted, Request,
+                    RequestDeadlineExceeded, RequestHandle, SamplingParams)
 
 
 def _default_buckets(cap: int) -> Tuple[int, ...]:
@@ -58,13 +66,27 @@ class EngineConfig:
     budget, allocated at startup; ``buckets`` are the padded prefill
     lengths (None = powers of two up to ``max_len``); ``max_queue``
     bounds admission; ``metrics`` receives one ``serve_request`` event
-    per finished or failed request."""
+    per finished or failed request and, every ``log_every`` iterations,
+    a ``metrics_snapshot`` of the engine's gauges.
+
+    ``paged=True`` serves from the paged KV pool (``serve/pages/``);
+    its ``page_len``, ``n_pages`` (0: the contiguous pool's budget,
+    ``n_slots * ceil(max_len / page_len)``), ``prefix_share`` and
+    ``kv_dtype`` default from ``DPX_SERVE_PAGE_LEN``,
+    ``DPX_SERVE_N_PAGES``, ``DPX_SERVE_PREFIX_SHARE`` and
+    ``DPX_SERVE_KV_DTYPE``."""
 
     n_slots: int = 4
     max_len: int = 256
     buckets: Optional[Tuple[int, ...]] = None
     max_queue: int = 64
     metrics: Optional[MetricsLogger] = None
+    log_every: int = 16
+    paged: bool = False
+    page_len: Optional[int] = None
+    n_pages: Optional[int] = None
+    prefix_share: Optional[bool] = None
+    kv_dtype: Optional[str] = None
 
 
 class InferenceEngine:
@@ -99,8 +121,35 @@ class InferenceEngine:
             raise ValueError(
                 f"largest prefill bucket ({max(self.buckets)}) exceeds "
                 f"max_len ({cfg.max_len}) — the slot row cannot hold it")
-        self.pool = SlotPool(model, cfg.n_slots, cfg.max_len,
-                             window=self.window)
+        self._paged = cfg.paged
+        if cfg.paged:
+            if self.window is not None:
+                raise ValueError(
+                    "paged KV (serve/pages) does not support "
+                    "sliding-window models — the rolling O(window) "
+                    "SlotPool already bounds their memory (paged=False)")
+            page_len = (cfg.page_len if cfg.page_len is not None
+                        else _env.get("DPX_SERVE_PAGE_LEN"))
+            n_pages = (cfg.n_pages if cfg.n_pages is not None
+                       else _env.get("DPX_SERVE_N_PAGES"))
+            if not n_pages:
+                n_pages = cfg.n_slots * (-(-cfg.max_len // page_len))
+            share = (cfg.prefix_share if cfg.prefix_share is not None
+                     else _env.get("DPX_SERVE_PREFIX_SHARE"))
+            kv_dtype = (cfg.kv_dtype if cfg.kv_dtype is not None
+                        else _env.get("DPX_SERVE_KV_DTYPE"))
+            self.pool = PagedSlotPool(model, cfg.n_slots, cfg.max_len,
+                                      page_len=page_len, n_pages=n_pages,
+                                      prefix_share=bool(share),
+                                      kv_dtype=kv_dtype)
+        else:
+            if cfg.kv_dtype is not None and cfg.kv_dtype != "f32":
+                raise ValueError(
+                    f"kv_dtype={cfg.kv_dtype!r} requires the paged pool "
+                    "(paged=True): the contiguous SlotPool has no "
+                    "quantized storage mode")
+            self.pool = SlotPool(model, cfg.n_slots, cfg.max_len,
+                                 window=self.window)
         self.metrics = cfg.metrics
         self._scheduler = AdmissionScheduler(cfg.max_queue)
         self._running: Dict[int, Request] = {}     # slot -> request
@@ -181,6 +230,18 @@ class InferenceEngine:
                 f"request {rid}: learned position embeddings cannot "
                 f"extrapolate past max_seq ({self.model.max_seq})",
                 reason="too_long", request_id=rid)
+        if self._paged:
+            # the last sampled token retires without a KV write (decode
+            # writes positions s .. s+max_new-2)
+            worst = -(-(s + sp.max_new_tokens - 1) // self.pool.page_len)
+            if worst > self.pool.n_pages:
+                # it could never hold its pages, even with the whole
+                # pool to itself: reject now, not starve in the queue
+                raise AdmissionRejected(
+                    f"request {rid}: worst-case page need ({worst}) "
+                    f"exceeds the page pool ({self.pool.n_pages} pages "
+                    f"of {self.pool.page_len})",
+                    reason="no_free_pages", request_id=rid)
 
     def start(self) -> "InferenceEngine":
         if self._thread is not None:
@@ -222,15 +283,40 @@ class InferenceEngine:
         self.shutdown()
 
     def stats(self) -> Dict:
-        return {"iterations": self._iteration,
-                "completed": self._completed, "failed": self._failed,
-                "tokens_emitted": self._tokens_emitted,
-                "queue_depth": len(self._scheduler),
-                "active_slots": len(self._running),
-                "n_slots": self.config.n_slots,
-                "decode_steps": self.pool.decode_steps,
-                "prefill_admits": dict(self.pool.admits),
-                "buckets": self.buckets}
+        out = {"iterations": self._iteration,
+               "completed": self._completed, "failed": self._failed,
+               "tokens_emitted": self._tokens_emitted,
+               "queue_depth": len(self._scheduler),
+               "active_slots": len(self._running),
+               "n_slots": self.config.n_slots,
+               "decode_steps": self.pool.decode_steps,
+               "prefill_admits": dict(self.pool.admits),
+               "buckets": self.buckets,
+               "paged": self._paged}
+        if self._paged:
+            out["pages"] = self.pool.page_stats()
+        return out
+
+    def _emit_snapshot(self) -> None:
+        """The engine's gauges as one ``metrics_snapshot`` event (the
+        JAX engine's dpxmon snapshot record)."""
+        m = {"serve.queue_depth": len(self._scheduler),
+             "serve.active_slots": len(self._running),
+             "serve.slot_occupancy": len(self._running)
+             / self.config.n_slots,
+             "serve.tokens_emitted": self._tokens_emitted}
+        if self._paged:
+            ps = self.pool.page_stats()
+            m.update({"serve.pool_occupancy": ps["pool_occupancy"],
+                      "serve.free_pages": ps["free_pages"],
+                      "serve.prefix_hit_rate": ps["prefix_hit_rate"] or 0.0,
+                      "serve.page_evictions": ps["evictions"],
+                      "serve.kv_bits": ps["kv_bits"],
+                      "serve.kv_pool_bytes": ps["kv_pool_bytes"],
+                      "serve.bytes_per_resident_token":
+                          ps["bytes_per_resident_token"]})
+        self.metrics.event("metrics_snapshot", source="serve_engine",
+                           step=self._iteration, metrics=m)
 
     # -- engine loop -------------------------------------------------------
 
@@ -259,6 +345,9 @@ class InferenceEngine:
                         self._stop = True
                     self._crash = e
                     break
+                if (self.metrics is not None
+                        and self._iteration % self.config.log_every == 0):
+                    self._emit_snapshot()
         self._drain_on_stop()
 
     def _sweep_deadlines(self, now: float) -> None:
@@ -290,18 +379,76 @@ class InferenceEngine:
             req.state = RUNNING
             req.slot = slot
             self._running[slot] = req
-            s = int(req.prompt.shape[0])
-            bucket = next(b for b in self.buckets if b >= s)
-            padded = torch.zeros((1, bucket), dtype=torch.long,
-                                 device=self.device)
-            padded[0, :s] = torch.from_numpy(req.prompt.astype(np.int64))
-            logits = self.pool.admit(padded, s, slot)
+            if self._paged:
+                try:
+                    logits, n_hit, offset = self.pool.admit(
+                        req.prompt, slot, self.buckets)
+                except PagePoolExhausted as e:
+                    self._running.pop(slot, None)
+                    self._free.append(slot)
+                    req.slot = None
+                    if self._running:
+                        # back-pressure: a retirement will free pages;
+                        # retry first in its class next iteration
+                        req.state = QUEUED
+                        self._scheduler.requeue(req)
+                        return
+                    exc = AdmissionRejected(
+                        f"request {req.request_id}: page pool exhausted "
+                        f"at admission ({e.needed} page(s) needed, "
+                        f"{e.free_pages} free) with no running request "
+                        f"to release pages", reason="no_free_pages",
+                        request_id=req.request_id,
+                        iteration=self._iteration)
+                    exc.__cause__ = e
+                    self._fail(req, exc, outcome="no_free_pages")
+                    continue
+                except AdmissionRejected as e:
+                    self._running.pop(slot, None)
+                    self._free.append(slot)
+                    req.slot = None
+                    exc = AdmissionRejected(
+                        f"request {req.request_id}: {e}", reason=e.reason,
+                        request_id=req.request_id,
+                        iteration=self._iteration)
+                    exc.__cause__ = e
+                    self._fail(req, exc, outcome=e.reason)
+                    continue
+                req.prefix_hit_pages = n_hit
+                req.prefill_tokens_saved = offset
+            else:
+                s = int(req.prompt.shape[0])
+                bucket = next(b for b in self.buckets if b >= s)
+                padded = torch.zeros((1, bucket), dtype=torch.long,
+                                     device=self.device)
+                padded[0, :s] = torch.from_numpy(
+                    req.prompt.astype(np.int64))
+                logits = self.pool.admit(padded, s, slot)
             req.admit_t = time.monotonic()
             req.admit_iteration = self._iteration
             self._emit(req, self._sample_for(req, logits))
 
     def _decode_all(self) -> None:
         slots = sorted(self._running)
+        if self._paged:
+            for slot in list(slots):
+                req = self._running[slot]
+                try:
+                    self.pool.ensure_decode_capacity(slot)
+                except PagePoolExhausted as e:
+                    # the victim fails typed; co-resident streams go on
+                    self._fail(req, PagePoolExhausted(
+                        f"request {req.request_id}: page pool exhausted "
+                        f"mid-decode after {len(req.out_tokens)} tokens "
+                        f"({e.needed} page(s) needed, {e.free_pages} "
+                        f"free — every page held by a live reader)",
+                        needed=e.needed, free_pages=e.free_pages,
+                        request_id=req.request_id,
+                        iteration=self._iteration),
+                        outcome="no_free_pages")
+                    slots.remove(slot)
+            if not slots:
+                return
         active = np.zeros(self.config.n_slots, bool)
         active[slots] = True
         logits = self.pool.decode(

@@ -30,7 +30,10 @@ def request_record(req: Request, outcome: str) -> Dict:
             "queue_ms": ((req.admit_t - req.submit_t) * 1e3
                          if req.admit_t is not None else None),
             "admit_iteration": req.admit_iteration,
-            "retire_iteration": req.retire_iteration}
+            "retire_iteration": req.retire_iteration,
+            # paged KV prefix sharing (0/0 when unpaged or cold)
+            "prefix_hit_pages": req.prefix_hit_pages,
+            "prefill_tokens_saved": req.prefill_tokens_saved}
 
 
 def percentile(xs: List[float], q: float) -> Optional[float]:
@@ -60,6 +63,16 @@ def aggregate(records: List[Dict], wall_s: Optional[float] = None) -> Dict:
         "tpot_ms_p50": percentile(tpot, 50),
         "tpot_ms_p99": percentile(tpot, 99),
     }
+    saved = sum(r.get("prefill_tokens_saved") or 0 for r in ok)
+    if saved:
+        # prefix sharing (paged engines): prefill tokens skipped and
+        # their share of all prompt tokens
+        prompt_toks = sum(r["prompt_len"] for r in ok)
+        out["prefill_tokens_saved"] = saved
+        out["prefix_hit_rate"] = (round(saved / prompt_toks, 4)
+                                  if prompt_toks else None)
+        out["prefix_hit_pages"] = sum(r.get("prefix_hit_pages") or 0
+                                      for r in ok)
     if wall_s:
         out["wall_s"] = round(wall_s, 3)
         out["tokens_per_sec"] = round(toks / wall_s, 2)

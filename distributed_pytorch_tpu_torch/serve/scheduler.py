@@ -25,6 +25,7 @@ class AdmissionScheduler:
         self.max_queue = max_queue
         self._heap: List[tuple] = []    # (priority, seq, Request)
         self._seq = 0
+        self._front = 0                 # decreasing: requeue-at-front seqs
         self._lock = threading.Lock()
 
     def __len__(self) -> int:
@@ -42,6 +43,17 @@ class AdmissionScheduler:
             heapq.heappush(self._heap,
                            (req.params.priority, self._seq, req))
             self._seq += 1
+
+    def requeue(self, req: Request) -> None:
+        """Put a just-popped request back at the FRONT of its priority
+        class (the paged pool's back-pressure: admission found no pages
+        this iteration, so the request retries after a retirement frees
+        some). Bypasses ``max_queue``: the request was admitted to the
+        queue once already."""
+        with self._lock:
+            self._front -= 1
+            heapq.heappush(self._heap,
+                           (req.params.priority, self._front, req))
 
     def pop(self) -> Optional[Request]:
         """Highest-priority (then oldest) request, or None."""

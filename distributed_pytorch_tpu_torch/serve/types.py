@@ -4,8 +4,8 @@ request lifecycle and the typed failure vocabulary.
 The port's own copy of ``distributed_pytorch_tpu/serve/types.py`` (the
 port imports nothing of the JAX package). Every failure is a typed
 exception carrying the request id and the engine iteration, so callers
-never parse message strings. Handoff, speculative-decoding and page
-errors wait for the slices that bring those features.
+never parse message strings. Handoff and speculative-decoding errors
+wait for the slices that bring those features.
 """
 
 from __future__ import annotations
@@ -69,6 +69,24 @@ class EngineStopped(ServeError):
     """The engine shut down while the request was still in flight."""
 
 
+class PagePoolExhausted(ServeError):
+    """The paged KV pool (``serve/pages/``) could not supply a page:
+    the free list is empty and every other page is held by a live reader
+    (refcount > 0), so nothing is LRU-evictable. The pool raises it with
+    ``needed``/``free_pages``; the engine re-raises it with the victim
+    request and iteration attached (a mid-decode growth failure fails
+    that request only). At admission the same condition is back-pressure
+    instead: the request stays queued while other requests hold pages,
+    or fails ``AdmissionRejected(reason="no_free_pages")`` when nothing
+    could ever release them."""
+
+    def __init__(self, msg: str, *, needed: int = 0, free_pages: int = 0,
+                 **kw):
+        super().__init__(msg, **kw)
+        self.needed = needed
+        self.free_pages = free_pages
+
+
 #: Request lifecycle states (host-side bookkeeping only).
 QUEUED, RUNNING, FINISHED, FAILED = "queued", "running", "finished", "failed"
 
@@ -90,6 +108,11 @@ class Request:
     out_tokens: List[int] = field(default_factory=list)
     admit_t: Optional[float] = None
     admit_iteration: Optional[int] = None
+    # paged KV (serve/pages/): full prefix pages the radix index supplied
+    # at admission, and the prefill tokens that reuse saved (0/0 cold or
+    # unpaged)
+    prefix_hit_pages: int = 0
+    prefill_tokens_saved: int = 0
     retire_iteration: Optional[int] = None
     first_token_t: Optional[float] = None
     last_token_t: Optional[float] = None

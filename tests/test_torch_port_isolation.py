@@ -10,7 +10,10 @@ import pytest
 import torch
 
 import distributed_pytorch_tpu_torch as port
+from distributed_pytorch_tpu_torch.data import device_prefetch
+from distributed_pytorch_tpu_torch.examples import train_transformer_lm
 from distributed_pytorch_tpu_torch.runtime.device import resolve_device
+from distributed_pytorch_tpu_torch.serve.pages import PagedSlotPool
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "distributed_pytorch_tpu_torch")
@@ -60,7 +63,11 @@ def test_importing_the_port_loads_no_jax():
             "distributed_pytorch_tpu_torch.serve, "
             "distributed_pytorch_tpu_torch.ops.flash_attention, "
             "distributed_pytorch_tpu_torch.ops.decode_attention, "
-            "distributed_pytorch_tpu_torch.examples.train_resnet\n"
+            "distributed_pytorch_tpu_torch.examples.train_resnet, "
+            "distributed_pytorch_tpu_torch.examples.train_transformer_lm, "
+            "distributed_pytorch_tpu_torch.utils.checkpoint, "
+            "distributed_pytorch_tpu_torch.utils.profiler, "
+            "distributed_pytorch_tpu_torch.serve.pages\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
             "m.startswith(('jax.', 'jaxlib.')) or "
             "m == 'distributed_pytorch_tpu' or "
@@ -79,4 +86,13 @@ def test_entry_points_raise_without_cuda_and_without_device(monkeypatch):
         port.TransformerLM()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port.ResNet18()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedSlotPool(port.TransformerLM(), 2, 64, page_len=16, n_pages=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_transformer_lm.main_worker(
+            0, 1, ["--steps", "1", "--dim", "16", "--n-layers", "1",
+                   "--n-heads", "2", "--seq-len", "8", "--data-size", "8"],
+            quiet=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_prefetch([])
     assert resolve_device("cpu") == torch.device("cpu")

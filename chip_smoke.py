@@ -129,10 +129,44 @@ non-zero at once:
               page must return to the free list once the prefix index
               is emptied. TTFT/TPOT p50/p99, tokens/s, peak pages in
               use, pool bytes, and one 4-slot paged decode step's device
-              busy / idle share beside the contiguous engine's.
+              busy / idle share beside the contiguous engine's;
+21. serve_kvq — serve_paged's traffic on the paged pool (page 16, 512
+              pages) at kv_dtype f32, q8 and q4: the f32 streams must
+              equal serve_paged's, the cold request's first token must
+              be the same at every width, every element of the pages the
+              cold admission completed must dequantize within scale/2
+              of the f32 pool's value (the warm tails' pages, computed
+              over a quantized prefix, are reported), bytes per resident
+              token must be 36,864 / 18,504 / 9,288 with 4,718,592 B of
+              tails beside a quantized pool, and the flash forward must
+              launch 12 times per admission. TTFT/TPOT p50/p99, the
+              greedy divergence from f32, peak pages, and one 4-slot
+              decode step's max logit delta, wall and device busy;
+22. serve_spec — serve_paged's 8 greedy prompts and 2 sampled ones, 31
+              new tokens (1 + 6 (k+1)), ``spec_decode`` with draft_len 4:
+              (a) the target as its own draft on the contiguous pool, (b)
+              a 2-layer FLAGSHIP-width draft from another seed on the
+              paged pool, (c) (a) on the q8 paged pool, each beside the
+              same engine without speculation: the greedy streams must
+              be equal, token for token (a divergence prints its
+              position and the reference's top-2 logit gap there),
+              acceptance must be exactly 1.0 in (a) and (c), the
+              sampled requests must finish, the flash forward must
+              launch for every
+              target and draft prefill of >= 1024 keys. Acceptance,
+              tokens per iteration, TPOT p50 and decode-loop seconds
+              beside the unspeculated run's;
+23. serve_int8 — ``quantize_tree`` of the serve model: every int8 weight
+              equal to ``quantize_int8`` of the bf16 one, bit for bit;
+              first-token logits of 4 prompts within twice the distance
+              a random draw of every weight within +-scale/2 of its
+              channel moves them; ``quantized_bytes`` beside the bf16
+              model's; 4 greedy requests through the engine on both
+              models, TPOT and flash launches.
 
 Then the ``kernels`` line (each kernel's design, ``wgmma+tma`` or
-``scalar_fma``, as its bf16 path runs it; the forward at both shapes),
+``scalar_fma``, as its bf16 path runs it; the forward at both shapes and
+its launches in ``serve_kvq``, ``serve_spec`` and ``serve_int8``),
 the nvidia-smi line and, last, the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1614,6 +1648,17 @@ def phase_lm_trainer(torch, tflash, device, train_step_ms):
 SYSTEM_PROMPT, PAGED_TAILS = 1024, (32, 64, 96, 128, 160, 192, 224, 256)
 
 
+def paged_traffic():
+    """The serve_paged traffic: one shared 1024-token system prompt and
+    eight distinct tails, as (S,) int32 prompts, and the generator that
+    made them (it goes on to draw the warm-up prompts)."""
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, FLAGSHIP["vocab"], SYSTEM_PROMPT)
+    return [np.concatenate([system, rng.integers(
+        0, FLAGSHIP["vocab"], n)]).astype(np.int32)
+        for n in PAGED_TAILS], rng
+
+
 def phase_serve_paged(torch, model):
     """The serve phase's model behind the paged engine: a shared system
     prompt, eight tails, greedy; against the contiguous engine."""
@@ -1625,10 +1670,7 @@ def phase_serve_paged(torch, model):
                                                      aggregate)
     from distributed_pytorch_tpu_torch.serve.cache import SlotPool
     from distributed_pytorch_tpu_torch.serve.pages import PagedSlotPool
-    rng = np.random.default_rng(5)
-    system = rng.integers(0, FLAGSHIP["vocab"], SYSTEM_PROMPT)
-    prompts = [np.concatenate([system, rng.integers(
-        0, FLAGSHIP["vocab"], n)]).astype(np.int32) for n in PAGED_TAILS]
+    prompts, rng = paged_traffic()
     sp = SamplingParams(max_new_tokens=MAX_NEW)
 
     def serve(paged):
@@ -1690,23 +1732,8 @@ def phase_serve_paged(torch, model):
             decode_step_slots(model, cpool.ks, cpool.vs, cpool.lengths,
                               toks)
 
-        steps = {}
-        for label, fn in (("paged", paged_step),
-                          ("contiguous", contiguous_step)):
-            fn()
-            torch.cuda.synchronize()
-            ts = []
-            for _ in range(5):
-                t = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                ts.append((time.perf_counter() - t) * 1e3)
-            wall_ms = sorted(ts)[2]
-            busy = device_busy_ms(torch, fn)
-            steps[label] = dict(wall_ms=wall_ms, device_busy_ms=busy,
-                                device_idle_share=(
-                                    None if busy is None
-                                    else max(0.0, 1 - busy / wall_ms)))
+        steps = {label: step_times(torch, fn) for label, fn in (
+            ("paged", paged_step), ("contiguous", contiguous_step))}
     del ppool, cpool
     torch.cuda.empty_cache()
     emit(phase="serve_paged", card=torch.cuda.get_device_name(0),
@@ -1741,6 +1768,437 @@ def phase_serve_paged(torch, model):
         fail(f"serve_paged: {live_after} live pages after retirement, "
              f"{free_after_drain} of {ps['n_pages']} free after draining "
              "the index")
+    return outs
+
+
+def run_engine(torch, tflash, model, cfg, prompts, sps, gens=None):
+    """One warm-up request (not measured), then ``prompts`` through a
+    fresh engine of ``cfg``, the flash launch count set to 0 just before
+    and read just after. Returns the engine, handles, streams, wall
+    seconds, host seconds inside the decode loop (``_decode_all``: the
+    batched decode and, speculating, propose + verify + commit), peak
+    pages in use and flash launches."""
+    from distributed_pytorch_tpu_torch.serve import (InferenceEngine,
+                                                     SamplingParams)
+    with InferenceEngine(model, cfg) as eng:
+        eng.submit(prompts[0][:300], SamplingParams(max_new_tokens=2)
+                   ).result(timeout=900)
+    eng = InferenceEngine(model, cfg)
+    peak, decode_s = [0], [0.0]
+    inner = eng._decode_all
+
+    def timed_decode():
+        t = time.perf_counter()
+        inner()
+        decode_s[0] += time.perf_counter() - t
+    eng._decode_all = timed_decode
+
+    def watch(tok, i):
+        if cfg.paged:
+            peak[0] = max(peak[0], eng.pool.pool.pages_in_use)
+    tflash.reset_launch_counts()
+    t0 = time.perf_counter()
+    with eng:
+        hs = [eng.submit(p, sp, on_token=watch,
+                         generator=None if gens is None else gens[i])
+              for i, (p, sp) in enumerate(zip(prompts, sps))]
+        outs = [h.result(timeout=900) for h in hs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(eng=eng, handles=hs, outs=outs, wall=wall,
+                decode_s=decode_s[0], peak=peak[0],
+                launches=tflash.LAUNCHES["flash_attention_fwd"])
+
+
+def slo(torch, run) -> dict:
+    from distributed_pytorch_tpu_torch.serve import aggregate
+    agg = aggregate([h.metrics for h in run["handles"]], wall_s=run["wall"])
+    return {k: agg[k] for k in ("ttft_ms_p50", "ttft_ms_p99", "tpot_ms_p50",
+                                "tpot_ms_p99", "tokens_per_sec")}
+
+
+def step_times(torch, fn) -> dict:
+    """Median host ms of 5 calls ending in a synchronize, and the
+    device-busy ms of one (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(5):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    wall_ms = sorted(ts)[2]
+    busy = device_busy_ms(torch, fn)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                device_idle_share=(None if busy is None
+                                   else max(0.0, 1 - busy / wall_ms)))
+
+
+KVQ_WIDTHS = ("f32", "q8", "q4")
+PAGE_LEN, N_PAGES = 16, 512
+# scale/2 plus the codec's own float32 rounding: the quantize multiplies
+# by fl(levels / amax), not by 1 / fl(amax / levels) (at most 2^-23
+# apart, relative), and the product and the dequantized value round once
+# each (2^-24 each): at most 127 x 2^-22 of a scale, 127 x 2^-21 of
+# scale/2
+HALF_SCALE_SLACK = 127 * 2.0 ** -21
+
+
+def kvq_arithmetic(n_slots=4, page_len=PAGE_LEN):
+    """Bytes per resident token of each width and the f32 tails beside a
+    quantized pool, by FLAGSHIP's shapes: 12 layers x K,V x 768 x 2 B at
+    bf16; a page of 12 heads x 16 x 64 = 12 blocks of 1024, one f32 scale
+    each per tensor; four slots of one f32 page per layer and tensor."""
+    layers, dim = FLAGSHIP["n_layers"], FLAGSHIP["dim"]
+    elems = dim * page_len
+    scales = 4 * -(-elems // 1024)
+    return ({"f32": layers * 2 * dim * 2,
+             "q8": layers * 2 * (elems + scales) / page_len,
+             "q4": layers * 2 * (elems // 2 + scales) / page_len},
+            n_slots * layers * 2 * elems * 4)
+
+
+def dequant_pages(torch, pool, layer, ids):
+    """K and V of pool pages ``ids`` of ``layer`` as float32, and the
+    per-element scale/2 of a quantized pool (None for an exact one)."""
+    from distributed_pytorch_tpu_torch.ops.quant import (
+        dequantize_page_blocks, page_block_map, unpack_page_nibbles)
+    if pool.quant_bits is None:
+        return ([pool.k_pages[layer][ids].float(),
+                 pool.v_pages[layer][ids].float()], None)
+    dh = FLAGSHIP["dim"] // FLAGSHIP["n_heads"]
+    bmap = page_block_map(FLAGSHIP["n_heads"], pool.page_len, dh,
+                          device=ids.device)
+    out, half = [], []
+    for pages, scales in ((pool.k_pages[layer], pool.k_scales[layer]),
+                          (pool.v_pages[layer], pool.v_scales[layer])):
+        q = pages[ids]
+        if pool.quant_bits == 4:
+            q = unpack_page_nibbles(q)
+        out.append(dequantize_page_blocks(q, scales[ids], bmap))
+        half.append(scales[ids][..., bmap] / 2)
+    return out, half
+
+
+def phase_serve_kvq(torch, tflash, model, paged_outs):
+    """serve_paged's traffic on the paged pool at f32, q8 and q4."""
+    from distributed_pytorch_tpu_torch.serve import (EngineConfig,
+                                                     SamplingParams)
+    from distributed_pytorch_tpu_torch.serve.pages import PagedSlotPool
+    prompts, _ = paged_traffic()
+    sps = [SamplingParams(max_new_tokens=MAX_NEW)] * len(prompts)
+    runs = {kv: run_engine(torch, tflash, model, EngineConfig(
+        n_slots=4, max_len=2048, paged=True, page_len=PAGE_LEN,
+        n_pages=N_PAGES, kv_dtype=kv), prompts, sps) for kv in KVQ_WIDTHS}
+    ref = runs["f32"]["outs"]
+    f32_same = [bool(np.array_equal(a, b)) for a, b in zip(ref, paged_outs)]
+    n_layers = FLAGSHIP["n_layers"]
+    want_bpt, want_tails = kvq_arithmetic()
+    rec = {}
+    # the pages the cold admission (request 0: the system prompt and its
+    # tail) completed: both pools computed them from the same values
+    full = len(prompts[0]) // PAGE_LEN
+    fpool = runs["f32"]["eng"].pool
+    cold_ids = fpool.index.match(prompts[0], full, fpool.pool)
+    for kv, run in runs.items():
+        pool, st = run["eng"].pool, run["eng"].stats()
+        ps = st["pages"]
+        r = dict(slo(torch, run), peak_pages_in_use=run["peak"],
+                 flash_launches=run["launches"],
+                 admits=sum(st["prefill_admits"].values()),
+                 bytes_per_resident_token=ps["bytes_per_resident_token"],
+                 kv_pool_bytes=ps["kv_pool_bytes"], kv_bits=ps["kv_bits"],
+                 cold_first_token=int(run["outs"][0][0]),
+                 greedy_divergence_rate=float(np.mean(
+                     [a != b for x, y in zip(run["outs"], ref)
+                      for a, b in zip(x, y)])),
+                 streams_equal_f32=[bool(np.array_equal(a, b))
+                                    for a, b in zip(run["outs"], ref)])
+        if pool.quant_bits is not None:
+            r["tails_bytes"] = (ps["kv_pool_bytes"]
+                                - ps["bytes_per_resident_token"]
+                                * N_PAGES * PAGE_LEN)
+            ids = pool.index.match(prompts[0], full, pool.pool)
+            indexed = [p for p, f in enumerate(pool.pool.indexed) if f]
+            warm = torch.as_tensor(sorted(set(indexed) - set(ids)),
+                                   device=model.device)
+            ids_t = torch.as_tensor(ids, device=model.device)
+            ratio = {"cold": 0.0, "warm": 0.0}
+            for layer in range(n_layers):
+                for which, ids_x in (("cold", ids_t), ("warm", warm)):
+                    if not ids_x.numel():
+                        continue
+                    exact = dequant_pages(torch, fpool, layer, ids_x)[0]
+                    got, half = dequant_pages(torch, pool, layer, ids_x)
+                    for e, g, h in zip(exact, got, half):
+                        ratio[which] = max(ratio[which], float(
+                            ((g - e).abs() / h).max()))
+            r.update(same_cold_pages=ids == cold_ids,
+                     resident_cold_pages=len(ids),
+                     resident_warm_pages=int(warm.numel()),
+                     cold_max_err_over_half_scale=ratio["cold"],
+                     warm_max_err_over_half_scale=ratio["warm"])
+        rec[kv] = r
+
+    # one 4-slot decode step of each width after the same four admits:
+    # the logits' distance from the exact pool's, and the step's times
+    pools = {kv: PagedSlotPool(model, 4, 2048, page_len=PAGE_LEN,
+                               n_pages=N_PAGES, kv_dtype=kv)
+             for kv in KVQ_WIDTHS}
+    active = np.ones(4, bool)
+    step = {}
+    with torch.inference_mode():
+        first = None
+        for kv, pool in pools.items():
+            lg = torch.cat([pool.admit(p, slot, (2048,))[0]
+                            for slot, p in enumerate(prompts[:4])])
+            if first is None:
+                first = lg.argmax(-1)
+            for slot in range(4):
+                pool.ensure_decode_capacity(slot)
+            step[kv] = pool.decode(first, active).float()
+
+            def fn(pool=pool):
+                for slot in range(4):
+                    pool.ensure_decode_capacity(slot)
+                pool.decode(first, active)
+            rec[kv]["decode_step_4slots"] = step_times(torch, fn)
+    for kv in ("q8", "q4"):
+        rec[kv]["one_step_max_logit_delta"] = float(
+            (step[kv] - step["f32"]).abs().max())
+    del pools
+    torch.cuda.empty_cache()
+    emit(phase="serve_kvq", card=torch.cuda.get_device_name(0),
+         system_prompt=SYSTEM_PROMPT, tails=list(PAGED_TAILS),
+         max_new=MAX_NEW, page_len=PAGE_LEN, n_pages=N_PAGES,
+         f32_streams_equal_serve_paged=f32_same,
+         want_bytes_per_resident_token=want_bpt, want_tails_bytes=want_tails,
+         half_scale_slack=HALF_SCALE_SLACK, **rec)
+    if not all(f32_same):
+        fail(f"serve_kvq: f32 streams differ from serve_paged's {f32_same}")
+    for kv, r in rec.items():
+        if r["bytes_per_resident_token"] != want_bpt[kv]:
+            fail(f"serve_kvq: {kv} holds {r['bytes_per_resident_token']} B "
+                 f"per resident token, not {want_bpt[kv]}")
+        if r["flash_launches"] != n_layers * r["admits"]:
+            fail(f"serve_kvq: {kv}: {r['flash_launches']} flash launches "
+                 f"for {r['admits']} admits")
+        if kv == "f32":
+            continue
+        if r["tails_bytes"] != want_tails:
+            fail(f"serve_kvq: {kv} tails {r['tails_bytes']} B, not "
+                 f"{want_tails}")
+        if r["cold_first_token"] != rec["f32"]["cold_first_token"]:
+            fail(f"serve_kvq: {kv} changed the cold request's first token")
+        if not (r["same_cold_pages"] and r["resident_cold_pages"] > 0):
+            fail(f"serve_kvq: {kv} holds other cold pages than f32")
+        if not r["cold_max_err_over_half_scale"] <= 1 + HALF_SCALE_SLACK:
+            fail(f"serve_kvq: {kv} resident element off its f32 value by "
+                 f"{r['cold_max_err_over_half_scale']} x scale/2")
+    return {kv: run["launches"] for kv, run in runs.items()}
+
+
+SPEC_K = 4
+# 1 + 6 (k + 1): no speculative iteration is cut short by the budget
+SPEC_MAX_NEW = 1 + 6 * (SPEC_K + 1)
+
+
+def top2_gap(torch, model, context) -> float:
+    """Top-1 minus top-2 logit of ``model`` after ``context`` (a prefill
+    of the whole context on the card): how near a tie a diverging token
+    was."""
+    from distributed_pytorch_tpu_torch.models.generate import prefill
+    with torch.inference_mode():
+        logits = prefill(model, torch.as_tensor(
+            context[None].astype(np.int64), device=model.device),
+            len(context))[0][0].float()
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def phase_serve_spec(torch, tflash, port, model):
+    """Speculative decoding of serve_paged's greedy requests plus two
+    sampled ones: (a) self-draft on the contiguous pool, (b) a 2-layer
+    draft from another seed on the paged pool, (c) (a) on the q8 paged
+    pool; each beside the same engine without speculation."""
+    from distributed_pytorch_tpu_torch.serve import (EngineConfig,
+                                                     SamplingParams)
+    greedy, _ = paged_traffic()
+    rng = np.random.default_rng(7)
+    sampled = [rng.integers(0, FLAGSHIP["vocab"], n).astype(np.int32)
+               for n in PROMPT_LENS[:2]]
+    prompts = greedy + sampled
+    sps = ([SamplingParams(max_new_tokens=SPEC_MAX_NEW)] * len(greedy)
+           + [SamplingParams(max_new_tokens=SPEC_MAX_NEW, temperature=0.8,
+                             top_k=50)] * len(sampled))
+    draft2 = port.TransformerLM(
+        dtype=torch.bfloat16, device=model.device,
+        attn_fn=tflash.make_flash_attn_fn(),
+        generator=torch.Generator(device=model.device).manual_seed(1),
+        **dict(FLAGSHIP, n_layers=2))
+    cases = {"a_self_contiguous": (dict(), model),
+             "b_draft2_paged": (dict(paged=True), draft2),
+             "c_self_paged_q8": (dict(paged=True, kv_dtype="q8"), model)}
+    rec, launches, bad = {}, {}, []
+    for name, (pool_kw, draft) in cases.items():
+        kw = dict(n_slots=4, max_len=2048, **pool_kw)
+        if pool_kw:
+            kw.update(page_len=PAGE_LEN, n_pages=N_PAGES)
+
+        def gens():
+            return [torch.Generator(device=model.device).manual_seed(200 + i)
+                    for i in range(len(prompts))]
+        base = run_engine(torch, tflash, model, EngineConfig(**kw), prompts,
+                          sps, gens())
+        spec = run_engine(torch, tflash, model, EngineConfig(
+            spec_decode=True, draft_model=draft, draft_len=SPEC_K, **kw),
+            prompts, sps, gens())
+        st = spec["eng"].stats()["spec"]
+        diverged = []
+        for i, (got, want) in enumerate(zip(spec["outs"][:len(greedy)],
+                                            base["outs"][:len(greedy)])):
+            if np.array_equal(got, want):
+                continue
+            t = int(np.argmax(got != want))
+            gap = top2_gap(torch, model, np.concatenate(
+                [greedy[i], want[:t]]))
+            diverged.append(dict(request=i, position=t, top2_gap=gap))
+        want_launches = len(greedy) * (FLAGSHIP["n_layers"]
+                                       + draft.n_layers)
+        rec[name] = dict(
+            acceptance_rate=st["acceptance_rate"],
+            tokens_per_iteration=st["tokens_per_iteration"],
+            proposed=st["proposed"], accepted=st["accepted"],
+            verify_steps=st["verify_steps"],
+            draft_layers=draft.n_layers,
+            greedy_streams_equal=len(greedy) - len(diverged),
+            divergences=diverged,
+            sampled_tokens=[len(o) for o in spec["outs"][len(greedy):]],
+            tpot_ms_p50=slo(torch, spec)["tpot_ms_p50"],
+            decode_loop_s=spec["decode_s"], wall_s=spec["wall"],
+            flash_launches=spec["launches"],
+            want_flash_launches=want_launches,
+            no_spec=dict(tpot_ms_p50=slo(torch, base)["tpot_ms_p50"],
+                         decode_loop_s=base["decode_s"],
+                         wall_s=base["wall"]))
+        launches[name] = spec["launches"]
+        if spec["launches"] != want_launches:
+            bad.append(f"{name}: {spec['launches']} flash launches, "
+                       f"want {want_launches}")
+        if diverged:
+            bad.append(f"{name}: greedy streams diverged from the "
+                       f"unspeculated engine's: {diverged}")
+        if any(n != SPEC_MAX_NEW for n in rec[name]["sampled_tokens"]):
+            bad.append(f"{name}: sampled requests did not finish")
+        if name[0] in "ac" and st["acceptance_rate"] != 1.0:
+            bad.append(f"{name}: self-draft acceptance "
+                       f"{st['acceptance_rate']} != 1.0")
+        del base, spec
+    del draft2
+    torch.cuda.empty_cache()
+    emit(phase="serve_spec", card=torch.cuda.get_device_name(0),
+         draft_len=SPEC_K, max_new=SPEC_MAX_NEW, greedy=len(greedy),
+         sampled=len(sampled), **rec)
+    if bad:
+        fail("serve_spec: " + "; ".join(bad))
+    return launches
+
+
+def phase_serve_int8(torch, tflash, model):
+    """``quantize_tree`` of the serve model: its weights, its logits and
+    bytes beside the bf16 model's, and 4 greedy requests through the
+    engine."""
+    import copy
+    from distributed_pytorch_tpu_torch.models.generate import prefill
+    from distributed_pytorch_tpu_torch.ops.quant import (
+        is_quantized, quantize_int8, quantize_tree, quantized_bytes)
+    from distributed_pytorch_tpu_torch.runtime import env
+    from distributed_pytorch_tpu_torch.serve import (EngineConfig,
+                                                     SamplingParams)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, FLAGSHIP["vocab"], (n,)).astype(np.int32)
+               for n in PROMPT_LENS][:4]
+    qmodel = quantize_tree(copy.deepcopy(model))
+    n_q = n_elems = 0
+    mismatched = []
+    for (name, mod), qmod in zip(model.named_modules(), qmodel.modules()):
+        if not is_quantized(qmod):
+            continue
+        q, s = quantize_int8(mod.weight, qmod.weight_axis)
+        if not (torch.equal(q, qmod.weight_q)
+                and torch.equal(s, qmod.weight_scale)):
+            mismatched.append(name)
+        n_q += 1
+        n_elems += q.numel()
+
+    # the yardstick of the tolerance: the same model with every weight
+    # moved by an independent uniform draw within +-scale/2 of its
+    # channel (the int8 grid's error bound, drawn at random, seeded)
+    noisy = copy.deepcopy(model)
+    gen = torch.Generator(device=model.device).manual_seed(3)
+    with torch.no_grad():
+        for mod, qmod in zip(noisy.modules(), qmodel.modules()):
+            if is_quantized(qmod):
+                u = torch.rand(mod.weight.shape, generator=gen,
+                               device=model.device) - 0.5
+                mod.weight.copy_((mod.weight.float() + u * qmod.weight_scale
+                                  .unsqueeze(qmod.weight_axis)).to(
+                                      mod.weight.dtype))
+    deltas, noise = [], []
+    with torch.inference_mode():
+        for p in prompts:
+            tok = torch.as_tensor(p[None].astype(np.int64),
+                                  device=model.device)
+            ref = prefill(model, tok, len(p))[0].float()
+            deltas.append(float((prefill(qmodel, tok, len(p))[0].float()
+                                 - ref).abs().max()))
+            noise.append(float((prefill(noisy, tok, len(p))[0].float()
+                                - ref).abs().max()))
+    del noisy
+    tol = 2 * max(noise)
+    sps = [SamplingParams(max_new_tokens=MAX_NEW)] * len(prompts)
+    min_seq = int(env.get("DPX_FLASH_MIN_SEQ"))
+    runs = {}
+    for label, m in (("bf16", model), ("int8", qmodel)):
+        run = run_engine(torch, tflash, m, EngineConfig(n_slots=4,
+                                                        max_len=2048),
+                         prompts, sps)
+        st = run["eng"].stats()
+        runs[label] = dict(run, flash_admits=sum(
+            n for b, n in st["prefill_admits"].items() if b >= min_seq))
+    same = [bool(np.array_equal(a, b)) for a, b in
+            zip(runs["int8"]["outs"], runs["bf16"]["outs"])]
+    qb, bb = quantized_bytes(qmodel), quantized_bytes(model)
+    emit(phase="serve_int8", card=torch.cuda.get_device_name(0),
+         quantized_tensors=n_q, quantized_elements=n_elems,
+         weights_equal_quantize_int8=not mismatched,
+         quantized_bytes=qb, bf16_bytes=bb, bytes_ratio=qb / bb,
+         first_token_max_logit_delta=deltas,
+         noise_yardstick_max_logit_delta=noise, tolerance=tol,
+         streams_equal_bf16=same,
+         int8=dict(slo(torch, runs["int8"]),
+                   decode_loop_s=runs["int8"]["decode_s"],
+                   flash_launches=runs["int8"]["launches"]),
+         bf16=dict(slo(torch, runs["bf16"]),
+                   decode_loop_s=runs["bf16"]["decode_s"],
+                   flash_launches=runs["bf16"]["launches"]))
+    if mismatched:
+        fail(f"serve_int8: int8 weights differ from quantize_int8 of the "
+             f"bf16 weights: {mismatched}")
+    if not max(deltas) <= tol:
+        fail(f"serve_int8: first-token logits off by {deltas} > {tol}")
+    for label, run in runs.items():
+        want = FLAGSHIP["n_layers"] * run["flash_admits"]
+        if run["launches"] != want or want == 0:
+            fail(f"serve_int8: {label}: {run['launches']} flash launches "
+                 f"for {run['flash_admits']} admits at buckets >= "
+                 f"{min_seq}")
+        if any(len(o) != MAX_NEW for o in run["outs"]):
+            fail(f"serve_int8: {label}: a request did not finish")
+    del qmodel
+    torch.cuda.empty_cache()
+    return runs["int8"]["launches"]
 
 
 def main() -> int:
@@ -1777,7 +2235,11 @@ def main() -> int:
     phase_breakdown(torch, model, pool, timing["ms"])
     del pool
     torch.cuda.empty_cache()
-    phase_serve_paged(torch, model)
+    paged_outs = phase_serve_paged(torch, model)
+    # the paged pool quantized, speculative decoding, int8 weights
+    kvq_launches = phase_serve_kvq(torch, tflash, model, paged_outs)
+    spec_launches = phase_serve_spec(torch, tflash, port, model)
+    int8_launches = phase_serve_int8(torch, tflash, model)
     del model
     torch.cuda.empty_cache()
 
@@ -1823,7 +2285,9 @@ def main() -> int:
         train_library_ms=bwd_timing["sdpa_fwd_ms"],
         train_bound_ms=bwd_timing["fwd_bound_ms"],
         train_tflops_per_s=bwd_timing["fwd_tflops_per_s"],
-        train_library_ratio=bwd_timing["fwd_ms"] / bwd_timing["sdpa_fwd_ms"])}
+        train_library_ratio=bwd_timing["fwd_ms"] / bwd_timing["sdpa_fwd_ms"],
+        serve_kvq_launches=kvq_launches, serve_spec_launches=spec_launches,
+        serve_int8_launches=int8_launches)}
     # the plain version and SDPA compute dQ, dK and dV in one call: their
     # times stand beside both kernels together (both_ms), not one alone
     for name, kern in (("flash_attention_bwd_dkv", "dkv"),

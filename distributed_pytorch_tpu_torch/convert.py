@@ -14,7 +14,12 @@ array (``jax.tree_util.tree_map(np.asarray, params)``). Layout changes:
   as they are;
 - conv kernels are HWIO in JAX and OIHW here: permuted (3, 2, 0, 1);
 - with tied embeddings there is no head: the port's vocab projection
-  reads the token table, as the JAX package's does.
+  reads the token table, as the JAX package's does;
+- an int8 tree (``ops.quant.quantize_tree`` of the JAX package:
+  ``{"w_q", "w_scale"}``, ``{"emb_q", "emb_scale"}``) loads into int8
+  buffers (the port's ``quantize_tree`` form) and reads back the same
+  way: ``w_q`` transposes like any Linear W, its scales copy as they
+  are.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 from .models.mlp import DummyModel
 from .models.resnet import ResNet18
 from .nn.conv import BatchNorm2d, Conv2d
+from .ops.quant import is_quantized, set_quantized
 
 # HWIO -> OIHW (and its inverse, OIHW -> HWIO)
 _TO_OIHW, _TO_HWIO = (3, 2, 0, 1), (2, 3, 1, 0)
@@ -48,8 +54,31 @@ def _copy(dst: torch.Tensor, src, transpose: bool = False,
             device=dst.device, dtype=dst.dtype))
 
 
+def _quantized(mod, p: Mapping[str, Any], key: str,
+               transpose: bool) -> None:
+    """Load the int8 pair ``{key}_q`` / ``{key}_scale`` into ``mod``'s
+    int8 buffers, in the dtype its float weight has (or had)."""
+    q = np.asarray(p[f"{key}_q"])
+    q = q.T if transpose else q
+    ref = mod.weight if mod.weight is not None else mod.weight_q
+    if tuple(q.shape) != tuple(ref.shape):
+        raise ValueError(f"param shape {q.shape} does not match the "
+                         f"port's {tuple(ref.shape)}")
+    dtype = mod.weight.dtype if mod.weight is not None else mod.weight_dtype
+    set_quantized(mod, torch.from_numpy(np.array(q, np.int8)),
+                  torch.from_numpy(np.array(p[f"{key}_scale"], np.float32)),
+                  dtype, -1 if transpose else -2)
+
+
+def _weight(mod, p: Mapping[str, Any], key: str, transpose: bool) -> None:
+    if f"{key}_q" in p:
+        _quantized(mod, p, key, transpose)
+    else:
+        _copy(mod.weight, p[key], transpose=transpose)
+
+
 def _linear(mod, p: Mapping[str, Any]) -> None:
-    _copy(mod.weight, p["w"], transpose=True)
+    _weight(mod, p, "w", transpose=True)
     if mod.bias is not None:
         _copy(mod.bias, p["b"])
 
@@ -106,12 +135,9 @@ def from_jax_params(params_np: Mapping[str, Any], model):
         _linear(model.lin1, params_np["lin1"])
         _linear(model.lin2, params_np["lin2"])
         return model
-    if "emb" not in params_np["tok"]:
-        raise ValueError("int8-quantized params are not supported yet: "
-                         "pass the float param tree")
-    _copy(model.tok.weight, params_np["tok"]["emb"])
+    _weight(model.tok, params_np["tok"], "emb", transpose=False)
     if model.pos is not None:
-        _copy(model.pos.weight, params_np["pos"]["emb"])
+        _weight(model.pos, params_np["pos"], "emb", transpose=False)
     if len(params_np["blocks"]) != len(model.blocks):
         raise ValueError(f"{len(params_np['blocks'])} JAX blocks for a "
                          f"{len(model.blocks)}-layer model")
@@ -149,8 +175,14 @@ def _jax_tree(model, leaf):
     perm)`` at every leaf: how each parameter turns into its JAX leaf
     (Linear W transposed back to (in, out), conv kernels permuted back
     to HWIO)."""
+    def weight(mod, key, transpose):
+        if is_quantized(mod):
+            return {f"{key}_q": leaf(mod.weight_q, transpose, None),
+                    f"{key}_scale": leaf(mod.weight_scale, False, None)}
+        return {key: leaf(mod.weight, transpose, None)}
+
     def linear(mod):
-        out = {"w": leaf(mod.weight, True, None)}
+        out = weight(mod, "w", True)
         if mod.bias is not None:
             out["b"] = leaf(mod.bias, False, None)
         return out
@@ -175,7 +207,7 @@ def _jax_tree(model, leaf):
             _put(tree, path, node)
         return tree
 
-    tree = {"tok": {"emb": leaf(model.tok.weight, False, None)},
+    tree = {"tok": weight(model.tok, "emb", False),
             "blocks": [{"ln1": norm(blk.ln1),
                         "attn": {"qkv": linear(blk.attn.qkv),
                                  "out": linear(blk.attn.out)},
@@ -184,7 +216,7 @@ def _jax_tree(model, leaf):
                        for blk in model.blocks],
             "ln_f": norm(model.ln_f)}
     if model.pos is not None:
-        tree["pos"] = {"emb": leaf(model.pos.weight, False, None)}
+        tree["pos"] = weight(model.pos, "emb", False)
     if model.head is not None:
         tree["head"] = linear(model.head)
     return tree

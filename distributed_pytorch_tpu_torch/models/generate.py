@@ -1,8 +1,9 @@
 """Autoregressive generation with a KV cache — the inference path.
 
-Counterpart of ``distributed_pytorch_tpu/models/generate.py`` (the
-contiguous-cache functions and the paged pool's decode and prefill;
-speculative and quantized variants wait for later slices). The JAX package compiles prefill and a
+Counterpart of ``distributed_pytorch_tpu/models/generate.py``: the
+contiguous-cache functions, the paged pool's decode and prefill (exact
+or block-quantized pages) and the speculative verify and commit over
+both pools. The JAX package compiles prefill and a
 ``lax.scan`` of decode steps into two XLA programs with the cache as an
 immutable carry; PyTorch runs eagerly, so here the decode loop is a
 Python loop and the cache tensors are preallocated once and written IN
@@ -30,8 +31,13 @@ import torch
 
 from ..nn.attention import dense_attention
 from ..ops.decode_attention import (DECODE_BLOCK, blockwise_decode_attention,
-                                    _rows, dense_decode_attention,
-                                    paged_decode_attention, resident_blocks)
+                                    blockwise_verify_attention, _rows,
+                                    dense_decode_attention,
+                                    paged_decode_attention,
+                                    paged_verify_attention, resident_blocks)
+from ..ops.quant import (dequantize_page_blocks, pack_page_nibbles,
+                         page_block_map, quantize_page_blocks,
+                         unpack_page_nibbles)
 from ..runtime.device import default_generator
 from .transformer import TransformerLM
 
@@ -227,13 +233,6 @@ def decode_step_slots(model: TransformerLM, ks, vs, lengths, tokens,
     return model.project_vocab(model.ln_f(x))[:, 0], ks, vs
 
 
-def _no_kv_bits(kv_bits) -> None:
-    if kv_bits is not None:
-        raise NotImplementedError(
-            f"kv_bits={kv_bits!r} (quantized KV pages) is not ported yet "
-            "(ROADMAP.md Queue A item 4.1, KV quantization)")
-
-
 def _pool_writes(pages: np.ndarray, n_pages: int, keep: np.ndarray):
     """Which rows write the pool: ``keep`` and a page id inside the pool.
     The JAX package scatters with ``mode="drop"``; an out-of-range id
@@ -241,10 +240,38 @@ def _pool_writes(pages: np.ndarray, n_pages: int, keep: np.ndarray):
     return np.nonzero(keep & (pages >= 0) & (pages < n_pages))[0]
 
 
+def _quantize_into(pages, scales, dest, src, bits: int) -> None:
+    """Quantize the exact f32 pages ``src`` (n, Hkv, L, Dh) once, on the
+    wire's block grid, and write them (nibble-packed at q4) with their
+    scales into the pool at page ids ``dest`` (n,)."""
+    q, sc = quantize_page_blocks(src, bits)
+    pages[dest] = pack_page_nibbles(q) if bits == 4 else q
+    scales[dest] = sc
+
+
+def _check_quant_args(kv_bits, *bufs) -> None:
+    if kv_bits is not None and any(b is None for b in bufs):
+        raise ValueError(f"kv_bits={kv_bits} needs k_scales, v_scales, "
+                         "k_tail and v_tail")
+
+
+def _paged_blocking(lengths, page_len: int, n_table: int, extra: int = 0):
+    """``(block_pages, n_blocks)`` of a paged attention over positions
+    up to ``max(lengths) + extra``: whole DECODE_BLOCKs of pages where
+    the page divides it (the contiguous decode's blocks, so both pools
+    sum alike), else one page per block."""
+    block_pages = (DECODE_BLOCK // page_len
+                   if DECODE_BLOCK % page_len == 0 else 1)
+    return block_pages, resident_blocks(
+        np.asarray(lengths) + extra, block_pages * page_len,
+        -(-n_table // block_pages))
+
+
 def decode_step_slots_paged(model: TransformerLM, k_pages, v_pages, tables,
                             lengths, tokens, active, *, page_len: int,
-                            blockwise: bool = True, kv_bits=None
-                            ) -> Tuple[torch.Tensor, list, list]:
+                            blockwise: bool = True, kv_bits=None,
+                            k_scales=None, v_scales=None, k_tail=None,
+                            v_tail=None):
     """One decode step over a PAGED slot pool (``serve/pages/``).
 
     K/V live in a shared pool, per layer ``(n_pages, Hkv, page_len,
@@ -265,9 +292,22 @@ def decode_step_slots_paged(model: TransformerLM, k_pages, v_pages, tables,
     on an H100). ``blockwise=False`` gathers the whole table and runs
     the dense softmax (the reference). Returns
     ``(logits (B, vocab), k_pages, v_pages)``; page allocation and the
-    lengths' advance belong to the caller. Quantized pools
-    (``kv_bits``) are not ported yet and raise."""
-    _no_kv_bits(kv_bits)
+    lengths' advance belong to the caller.
+
+    **Quantized pool** (``kv_bits`` 8 or 4): ``k_pages``/``v_pages``
+    hold block-quantized pages and ``k_scales``/``v_scales`` (per layer
+    (n_pages, nb) f32) and ``k_tail``/``v_tail`` (per layer (B, Hkv,
+    page_len, Dh) f32) their scales and each slot's exact current page.
+    The step's K/V goes into the slot's tail; when it lands on the
+    page's last position the whole tail page is quantized, once, from
+    exact values, into the pool with its scales. Attention dequantizes
+    the gathered pages and takes each slot's current page from its
+    tail. Returns ``(logits, k_pages, v_pages, k_scales, v_scales,
+    k_tail, v_tail)``; requires ``blockwise=True``."""
+    if kv_bits is not None and not blockwise:
+        raise ValueError("quantized paged KV (kv_bits) requires the "
+                         "blockwise decode path")
+    _check_quant_args(kv_bits, k_scales, v_scales, k_tail, v_tail)
     dev = model.device
     tables = np.asarray(tables, np.int64)
     lengths = np.asarray(lengths, np.int64)
@@ -287,40 +327,74 @@ def decode_step_slots_paged(model: TransformerLM, k_pages, v_pages, tables,
     rows_t = torch.as_tensor(rows, device=dev)
     dest_p = torch.as_tensor(wp[rows], device=dev)
     dest_o = torch.as_tensor(lengths[rows] % page_len, device=dev)
-    # whole DECODE_BLOCKs of pages per step where the page divides it:
-    # the contiguous decode's blocks, so both pools sum alike
-    block_pages = (DECODE_BLOCK // page_len
-                   if DECODE_BLOCK % page_len == 0 else 1)
-    n_blocks = resident_blocks(lengths, block_pages * page_len,
-                               -(-tables.shape[1] // block_pages))
+    if kv_bits is not None:
+        # every active row writes its own tail; a row whose write fills
+        # its page's last position quantizes that page now
+        t_rows = np.nonzero(active)[0]
+        t_rows_t = torch.as_tensor(t_rows, device=dev)
+        t_off = torch.as_tensor(lengths[t_rows] % page_len, device=dev)
+        comp = rows[lengths[rows] % page_len == page_len - 1]
+        comp_t = torch.as_tensor(comp, device=dev)
+        comp_p = torch.as_tensor(wp[comp], device=dev)
+    block_pages, n_blocks = _paged_blocking(lengths, page_len,
+                                            tables.shape[1])
     width = tables.shape[1] * page_len
     for i, blk in enumerate(model.blocks):
         hq, hk, hv = blk.attn.project_qkv(blk.ln1(x))
         hq, hk = blk.attn.maybe_rope(hq, hk, idx[:, None, None])
         kp, vp = k_pages[i], v_pages[i]
-        kp[dest_p, :, dest_o] = hk[rows_t, :, 0].to(kp.dtype)
-        vp[dest_p, :, dest_o] = hv[rows_t, :, 0].to(vp.dtype)
-        if blockwise:
+        if kv_bits is not None:
+            kt, vt = k_tail[i], v_tail[i]
+            kt[t_rows_t, :, t_off] = hk[t_rows_t, :, 0].to(torch.float32)
+            vt[t_rows_t, :, t_off] = hv[t_rows_t, :, 0].to(torch.float32)
+            if len(comp):
+                _quantize_into(kp, k_scales[i], comp_p, kt[comp_t], kv_bits)
+                _quantize_into(vp, v_scales[i], comp_p, vt[comp_t], kv_bits)
             o = paged_decode_attention(hq, kp, vp, tables_t, idx, hk, hv,
                                        scale=scale, page_len=page_len,
                                        n_blocks=n_blocks,
-                                       block_pages=block_pages)
+                                       block_pages=block_pages,
+                                       k_scales=k_scales[i],
+                                       v_scales=v_scales[i], k_tail=kt,
+                                       v_tail=vt)
         else:
-            pos = torch.arange(width, device=dev)
-            wm = (pos[None, :] == idx[:, None])[:, None, :, None]
-            k = torch.where(wm, hk.to(kp.dtype), _rows(kp[tables_t]))
-            v = torch.where(wm, hv.to(vp.dtype), _rows(vp[tables_t]))
-            o = dense_decode_attention(hq, k, v, pos[None, :] <= idx[:, None],
-                                       scale=scale)
+            kp[dest_p, :, dest_o] = hk[rows_t, :, 0].to(kp.dtype)
+            vp[dest_p, :, dest_o] = hv[rows_t, :, 0].to(vp.dtype)
+            if blockwise:
+                o = paged_decode_attention(hq, kp, vp, tables_t, idx, hk,
+                                           hv, scale=scale,
+                                           page_len=page_len,
+                                           n_blocks=n_blocks,
+                                           block_pages=block_pages)
+            else:
+                pos = torch.arange(width, device=dev)
+                wm = (pos[None, :] == idx[:, None])[:, None, :, None]
+                k = torch.where(wm, hk.to(kp.dtype), _rows(kp[tables_t]))
+                v = torch.where(wm, hv.to(vp.dtype), _rows(vp[tables_t]))
+                o = dense_decode_attention(hq, k, v,
+                                           pos[None, :] <= idx[:, None],
+                                           scale=scale)
         x = x + blk.attn.project_out(o)
         x = x + blk.mlp(x)
-    return model.project_vocab(model.ln_f(x))[:, 0], k_pages, v_pages
+    logits = model.project_vocab(model.ln_f(x))[:, 0]
+    if kv_bits is None:
+        return logits, k_pages, v_pages
+    return logits, k_pages, v_pages, k_scales, v_scales, k_tail, v_tail
+
+
+def _dequant_pages(pages, scales, ids, bits: int, bmap):
+    """Pool pages ``ids`` (n,) as f32 (n, Hkv, L, Dh)."""
+    q = pages[ids]
+    if bits == 4:
+        q = unpack_page_nibbles(q)
+    return dequantize_page_blocks(q, scales[ids], bmap)
 
 
 def prefill_partial_paged(model: TransformerLM, k_pages, v_pages, table_row,
                           tokens, offset: int, true_len: int, *,
-                          page_len: int, kv_bits=None
-                          ) -> Tuple[torch.Tensor, list, list]:
+                          page_len: int, kv_bits=None, k_scales=None,
+                          v_scales=None, k_tail=None, v_tail=None,
+                          slot: Optional[int] = None):
     """Prefill the TAIL of a prompt into pool pages, attending over a
     page-resident shared prefix (``serve/pages/``).
 
@@ -336,8 +410,19 @@ def prefill_partial_paged(model: TransformerLM, k_pages, v_pages, table_row,
     so a cold admission is that prefill's very computation. The real
     tail positions' K/V go into the slot's own pages (the shared prefix
     pages are never written). Returns ``(logits (1, vocab) at the last
-    real position, k_pages, v_pages)``."""
-    _no_kv_bits(kv_bits)
+    real position, k_pages, v_pages)``.
+
+    **Quantized pool** (``kv_bits`` 8 or 4, with the scales and tails
+    of :func:`decode_step_slots_paged` and the admitted ``slot``): each
+    page the tail completes is quantized once, from exact values, into
+    the pool with its scales; the partial last page goes exact into the
+    slot's f32 tail (zero past ``true_len``). The shared prefix is read
+    dequantized; the tail attends over its own exact values, so a cold
+    admission sees no quantization. Returns ``(logits, k_pages,
+    v_pages, k_scales, v_scales, k_tail, v_tail)``."""
+    _check_quant_args(kv_bits, k_scales, v_scales, k_tail, v_tail)
+    if kv_bits is not None and slot is None:
+        raise ValueError("a quantized prefill needs the admitted slot")
     tokens = _as_tokens(model, tokens)
     s = tokens.shape[1]
     dev = model.device
@@ -356,23 +441,238 @@ def prefill_partial_paged(model: TransformerLM, k_pages, v_pages, table_row,
     dest_p = torch.as_tensor(pages[keep], device=dev)
     dest_o = torch.as_tensor(tail_pos[keep] % page_len, device=dev)
     prefix_ids = torch.as_tensor(table_row[:n_prefix], device=dev)
+    if kv_bits is not None:
+        dh = model.dim // model.n_heads
+        bmap = page_block_map(model.n_kv_heads, page_len, dh, device=dev)
+        # the tail starts on a page boundary: its c-th complete chunk is
+        # the slot's page offset // page_len + c
+        n_comp = true_len // page_len
+        cidx = np.minimum(n_prefix + np.arange(n_comp), len(table_row) - 1)
+        cpages = table_row[cidx]
+        cvalid = np.nonzero((cpages >= 0) & (cpages < n_pages))[0]
+        cvalid_t = torch.as_tensor(cvalid, device=dev)
+        cpages_t = torch.as_tensor(cpages[cvalid], device=dev)
+        floor = n_comp * page_len
+        n_t = true_len - floor
     for i, blk in enumerate(model.blocks):
         hq, hk, hv = blk.attn.project_qkv(blk.ln1(x))
         hq, hk = blk.attn.maybe_rope(hq, hk, positions)
         kp, vp = k_pages[i], v_pages[i]
+        if kv_bits is not None:
+            for src, pool, sc, tail in ((hk, kp, k_scales[i], k_tail[i]),
+                                        (hv, vp, v_scales[i], v_tail[i])):
+                src = src[0].to(torch.float32)          # (Hkv, S, Dh)
+                if len(cvalid):
+                    chunks = src[:, :floor].reshape(
+                        src.shape[0], n_comp, page_len, src.shape[-1]
+                    ).transpose(0, 1)
+                    _quantize_into(pool, sc, cpages_t, chunks[cvalid_t],
+                                   kv_bits)
+                tail[slot] = 0.0
+                tail[slot, :, :n_t] = src[:, floor:true_len]
         if n_prefix:
-            pk = _rows(kp[prefix_ids[None]]).to(hk.dtype)
-            pv = _rows(vp[prefix_ids[None]]).to(hv.dtype)
+            if kv_bits is not None:
+                pk = _rows(_dequant_pages(kp, k_scales[i], prefix_ids,
+                                          kv_bits, bmap)[None])
+                pv = _rows(_dequant_pages(vp, v_scales[i], prefix_ids,
+                                          kv_bits, bmap)[None])
+                pk, pv = pk.to(hk.dtype), pv.to(hv.dtype)
+            else:
+                pk = _rows(kp[prefix_ids[None]]).to(hk.dtype)
+                pv = _rows(vp[prefix_ids[None]]).to(hv.dtype)
             k_all, v_all = torch.cat([pk, hk], 2), torch.cat([pv, hv], 2)
         else:
             k_all, v_all = hk, hv
         o = blk.attn.attn_fn(hq, k_all, v_all, causal=True)
-        kp[dest_p, :, dest_o] = hk[0, :, keep_t].transpose(0, 1).to(kp.dtype)
-        vp[dest_p, :, dest_o] = hv[0, :, keep_t].transpose(0, 1).to(vp.dtype)
+        if kv_bits is None:
+            kp[dest_p, :, dest_o] = hk[0, :, keep_t].transpose(0, 1).to(
+                kp.dtype)
+            vp[dest_p, :, dest_o] = hv[0, :, keep_t].transpose(0, 1).to(
+                vp.dtype)
         x = x + blk.attn.project_out(o)
         x = x + blk.mlp(x)
     x_last = model.ln_f(x[:, true_len - 1:true_len])
-    return model.project_vocab(x_last)[:, 0], k_pages, v_pages
+    logits = model.project_vocab(x_last)[:, 0]
+    if kv_bits is None:
+        return logits, k_pages, v_pages
+    return logits, k_pages, v_pages, k_scales, v_scales, k_tail, v_tail
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: the read-only verify and the accepted-prefix commit
+# ---------------------------------------------------------------------------
+
+def _verify_inputs(model: TransformerLM, lengths, tokens):
+    """(host lengths, idx tensor, tokens (B, S), positions (B, S) and
+    the embedded candidates) of a verify."""
+    dev = model.device
+    lengths = np.asarray(lengths, np.int64)
+    idx = torch.as_tensor(lengths, device=dev)
+    tokens = _as_tokens(model, tokens)
+    positions = idx[:, None] + torch.arange(tokens.shape[1],
+                                            device=dev)[None, :]
+    # a candidate past max_seq reads the learned table's last row (the
+    # JAX package's clamping gather); such a row is never accepted
+    x = model.embed(tokens, positions.clamp_max(model.max_seq - 1))
+    return lengths, idx, tokens, positions, x
+
+
+def _verify_layers(model: TransformerLM, x, positions, attend):
+    """The verify's forward: per layer the candidates' projections and
+    ``attend(i, hq, hk, hv)``; returns (logits (B, S, vocab), sk, sv)
+    with sk/sv per-layer (B, Hkv, S, Dh) f32 candidate K/V."""
+    sk, sv = [], []
+    for i, blk in enumerate(model.blocks):
+        hq, hk, hv = blk.attn.project_qkv(blk.ln1(x))
+        hq, hk = blk.attn.maybe_rope(hq, hk, positions[:, None, :])
+        sk.append(hk.to(torch.float32))
+        sv.append(hv.to(torch.float32))
+        x = x + blk.attn.project_out(attend(i, hq, hk, hv))
+        x = x + blk.mlp(x)
+    return model.project_vocab(model.ln_f(x)), sk, sv
+
+
+def spec_verify_slots(model: TransformerLM, ks, vs, lengths, tokens):
+    """Speculative-decoding VERIFY over a contiguous slot pool
+    (``serve/spec/``): score all k+1 candidate positions of every row in
+    one batched forward, without writing the pool.
+
+    ``tokens`` (B, S) is per row ``[cur, d_1 .. d_k]``: the slot's
+    current (emitted, not yet cached) token and its k draft proposals,
+    S = k + 1; ``lengths`` (B,) host ints. Row b's query j runs at
+    position ``lengths[b] + j`` and attends over the pool below
+    ``lengths[b]`` and the candidates up to itself, through
+    :func:`..ops.decode_attention.blockwise_verify_attention`: the
+    ``DECODE_BLOCK`` blocks a :func:`decode_step_slots` at that position
+    merges, in its order (the JAX package's dense softmax over the whole
+    width would round otherwise). Nothing is written, so a rejected
+    suffix needs no rewind; :func:`spec_commit_slots` writes the
+    accepted prefix. Returns ``(logits (B, S, vocab), sk, sv)``: sk/sv
+    per-layer (B, Hkv, S, Dh) f32 candidate K/V."""
+    lengths, idx, tokens, positions, x = _verify_inputs(model, lengths,
+                                                        tokens)
+    s = tokens.shape[1]
+    scale = 1.0 / math.sqrt(model.dim // model.n_heads)
+    n_blocks = resident_blocks(lengths + s - 1, DECODE_BLOCK,
+                               -(-ks[0].shape[2] // DECODE_BLOCK))
+
+    def attend(i, hq, hk, hv):
+        return blockwise_verify_attention(hq, ks[i], vs[i], idx, hk, hv,
+                                          scale=scale, n_blocks=n_blocks)
+    return _verify_layers(model, x, positions, attend)
+
+
+def _commit_rows(lengths, commit):
+    """(rows, candidate index j, position) of every accepted position."""
+    rows = np.repeat(np.arange(len(commit)), commit)
+    js = np.concatenate([np.arange(c) for c in commit]) if len(rows) \
+        else np.zeros(0, np.int64)
+    return rows, js, lengths[rows] + js
+
+
+def spec_commit_slots(ks, vs, lengths, sk, sv, commit):
+    """Write the ACCEPTED prefix of a verify's candidate K/V into a
+    contiguous slot pool, in place: ``commit`` (B,) host ints is each
+    row's accepted count e (0: not speculating), so candidates ``0 ..
+    e - 1`` land at positions ``lengths .. lengths + e - 1`` and the
+    rejected suffix is never written. Returns ``(ks, vs, lengths +
+    commit)``."""
+    lengths = np.asarray(lengths, np.int64)
+    commit = np.asarray(commit, np.int64)
+    rows, js, pos = _commit_rows(lengths, commit)
+    keep = pos < ks[0].shape[2]
+    if keep.any():
+        dev = ks[0].device
+        r, j, p = (torch.as_tensor(a[keep], device=dev)
+                   for a in (rows, js, pos))
+        for pool, scratch in zip(ks + vs, sk + sv):
+            pool[r, :, p] = scratch[r, :, j].to(pool.dtype)
+    return ks, vs, lengths + commit
+
+
+def spec_verify_slots_paged(model: TransformerLM, k_pages, v_pages, tables,
+                            lengths, tokens, *, page_len: int,
+                            kv_bits=None, k_scales=None, v_scales=None,
+                            k_tail=None, v_tail=None):
+    """Paged twin of :func:`spec_verify_slots`: the k+1-position verify
+    over a PAGED pool, read-only, through
+    :func:`..ops.decode_attention.paged_verify_attention`: the blocks of
+    :func:`decode_step_slots_paged`, a quantized pool read dequantized
+    and each slot's current page from its exact tail, except for the
+    candidates past the end of that page, which read it quantized, as
+    the decode at their position does (the JAX package's verify reads it
+    exact there). Returns ``(logits (B, S, vocab), sk, sv)``;
+    :func:`spec_commit_slots_paged` writes the accepted prefix."""
+    _check_quant_args(kv_bits, k_scales, v_scales, k_tail, v_tail)
+    lengths, idx, tokens, positions, x = _verify_inputs(model, lengths,
+                                                        tokens)
+    tables = np.asarray(tables, np.int64)
+    n_pages = k_pages[0].shape[0]
+    tables_t = torch.as_tensor(np.clip(tables, 0, n_pages - 1),
+                               device=model.device)
+    scale = 1.0 / math.sqrt(model.dim // model.n_heads)
+    block_pages, n_blocks = _paged_blocking(lengths, page_len,
+                                            tables.shape[1],
+                                            extra=tokens.shape[1] - 1)
+    quant = kv_bits is not None
+
+    def attend(i, hq, hk, hv):
+        return paged_verify_attention(
+            hq, k_pages[i], v_pages[i], tables_t, idx, hk, hv, scale=scale,
+            page_len=page_len, n_blocks=n_blocks, block_pages=block_pages,
+            k_scales=k_scales[i] if quant else None,
+            v_scales=v_scales[i] if quant else None,
+            k_tail=k_tail[i] if quant else None,
+            v_tail=v_tail[i] if quant else None, lengths=lengths)
+    return _verify_layers(model, x, positions, attend)
+
+
+def spec_commit_slots_paged(k_pages, v_pages, tables, lengths, sk, sv,
+                            commit, *, page_len: int, kv_bits=None,
+                            k_scales=None, v_scales=None, k_tail=None,
+                            v_tail=None):
+    """Paged twin of :func:`spec_commit_slots`, in place: position
+    ``lengths[b] + j`` (j < ``commit[b]``) lands in page ``tables[b, pos
+    // page_len]`` at offset ``pos % page_len``; rejected positions and
+    out-of-range page ids write nothing, so a page completes only from
+    accepted tokens. In a quantized pool each accepted position goes to
+    the slot's exact f32 tail, in order, and a write that fills a page's
+    last position quantizes that page once into the pool with its
+    scales, as :func:`decode_step_slots_paged` does. Returns ``(k_pages,
+    v_pages)`` (with the scales and tails in quant mode); advancing the
+    host lengths belongs to the caller."""
+    _check_quant_args(kv_bits, k_scales, v_scales, k_tail, v_tail)
+    lengths = np.asarray(lengths, np.int64)
+    commit = np.asarray(commit, np.int64)
+    tables = np.asarray(tables, np.int64)
+    n_pages = k_pages[0].shape[0]
+    dev = k_pages[0].device
+    rows, js, pos = _commit_rows(lengths, commit)
+    pages = tables[rows, np.minimum(pos // page_len, tables.shape[1] - 1)]
+    if kv_bits is None:
+        keep = _pool_writes(pages, n_pages, np.ones(len(rows), bool))
+        if len(keep):
+            r, j, p, o = (torch.as_tensor(a, device=dev) for a in (
+                rows[keep], js[keep], pages[keep], pos[keep] % page_len))
+            for pool, scratch in zip(k_pages + v_pages, sk + sv):
+                pool[p, :, o] = scratch[r, :, j].to(pool.dtype)
+        return k_pages, v_pages
+    for j in range(int(commit.max(initial=0))):
+        at = np.nonzero(js == j)[0]         # the rows committing j
+        wo = pos[at] % page_len
+        comp = at[(wo == page_len - 1)
+                  & (pages[at] >= 0) & (pages[at] < n_pages)]
+        r, o = (torch.as_tensor(a, device=dev) for a in (rows[at], wo))
+        rc, pc = (torch.as_tensor(a, device=dev)
+                  for a in (rows[comp], pages[comp]))
+        for i in range(len(k_pages)):
+            for tail, scratch, pool, sc in (
+                    (k_tail[i], sk[i], k_pages[i], k_scales[i]),
+                    (v_tail[i], sv[i], v_pages[i], v_scales[i])):
+                tail[r, :, o] = scratch[r, :, j].to(torch.float32)
+                if len(comp):
+                    _quantize_into(pool, sc, pc, tail[rc], kv_bits)
+    return k_pages, v_pages, k_scales, v_scales, k_tail, v_tail
 
 
 def _filter_logits(logits, temperature: float, top_k: Optional[int],

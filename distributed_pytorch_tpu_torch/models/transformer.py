@@ -22,6 +22,7 @@ from torch.utils import checkpoint as _ckpt
 
 from ..nn.attention import TransformerBlock
 from ..nn.core import Embedding, LayerNorm, Linear
+from ..ops.quant import resolve_weight
 from ..runtime import env as _env
 from ..runtime.device import DeviceLike, resolve_device
 
@@ -134,11 +135,14 @@ class TransformerLM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.tok.weight.device
+        return self.ln_f.scale.device
 
     def head_weight(self):
-        """The (vocab, dim) vocab-projection matrix."""
-        return self.tok.weight if self.tie_embeddings else self.head.weight
+        """The (vocab, dim) vocab-projection matrix: the head's weight,
+        or the token table when embeddings are tied; either may be int8
+        (``ops.quant.quantize_tree``), read dequantized."""
+        return resolve_weight(self.tok if self.tie_embeddings
+                              else self.head)
 
     def project_vocab(self, x):
         """Hidden states (..., dim) -> logits (..., vocab)."""

@@ -11,6 +11,10 @@ weights through ``convert.from_jax_params`` instead.
 
 Layout: ``Linear.weight`` is (out, in), PyTorch's habit, where the JAX
 package stores W as (in, out); ``convert.py`` transposes.
+
+``ops.quant.quantize_tree`` may replace a ``Linear`` / ``Embedding``
+weight with int8 buffers (``weight`` is then None); both layers read
+their weight through ``ops.quant.resolve_weight``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.quant import resolve_weight
 
 
 class Linear(nn.Module):
@@ -44,7 +50,7 @@ class Linear(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(x, resolve_weight(self), self.bias)
 
 
 class Embedding(nn.Module):
@@ -60,6 +66,11 @@ class Embedding(nn.Module):
         self.weight = nn.Parameter(w.normal_(0.0, std, generator=generator))
 
     def forward(self, ids):
+        if self.weight is None:
+            # int8 table (ops/quant.py): gather the int8 rows, then
+            # dequantize them in the model dtype
+            dt = self.weight_dtype
+            return self.weight_q[ids].to(dt) * self.weight_scale.to(dt)
         return F.embedding(ids, self.weight)
 
 

@@ -95,8 +95,8 @@ register("DPX_REMAT", "str", "none",
          "(save matmul outputs only, recompute elementwise — "
          "torch.utils.checkpoint with a selective policy).")
 
-# -- serving: the paged KV pool (serve/pages/); tenant quotas and
-# speculative decoding are not ported yet (ROADMAP.md Queue A item 4)
+# -- serving: the paged KV pool (serve/pages/), speculative decoding
+# (serve/spec/) and the tenant quota of the front door
 register("DPX_SERVE_PAGE_LEN", "int", 16,
          "Tokens per KV page of the paged serving cache "
          "(serve/pages/; only full pages are prefix-shared).")
@@ -110,9 +110,25 @@ register("DPX_SERVE_PREFIX_SHARE", "bool", True,
          "layout without sharing).")
 register("DPX_SERVE_KV_DTYPE", "str", "f32",
          "Resident storage of the paged serving KV pool: `f32` (exact "
-         "pages in the model's dtype); `q8` and `q4` (block-quantized "
-         "pages) are not ported yet and raise. Ignored by non-paged "
-         "engines.")
+         "pages in the model's dtype), `q8` or `q4` (block-quantized "
+         "pages with per-page-per-block f32 scales on the wire's block "
+         "grid, each slot's partial page kept exact until it completes). "
+         "Ignored by non-paged engines.")
+register("DPX_SPEC_DECODE", "bool", False,
+         "Enable speculative decoding in the serving engine "
+         "(serve/spec/): a draft model proposes DPX_SPEC_DRAFT_LEN "
+         "tokens per iteration, one batched verify scores them, only "
+         "accepted tokens commit. Requires EngineConfig(draft_model=); "
+         "greedy requests only.")
+register("DPX_SPEC_DRAFT_LEN", "int", 4,
+         "Draft tokens proposed per speculative iteration (k); the "
+         "verify scores k+1 positions and emits between 1 and k+1 "
+         "tokens.")
+register("DPX_SERVE_TENANT_MAX_INFLIGHT", "int", 0,
+         "Per-tenant inflight-request quota of the serving front door "
+         "(0 = unlimited): a tenant at its cap gets a synchronous "
+         "typed AdmissionRejected(reason=\"tenant_quota\") with tenant "
+         "attribution instead of queueing.")
 
 register("DPX_MP_POLICY", "str", "off",
          "Default mixed-precision policy of `parallel.make_train_step"

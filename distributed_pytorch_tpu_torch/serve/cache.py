@@ -12,6 +12,10 @@ knows its trip count ``max(lengths)`` without a device sync.
 A freed slot needs no clearing: the position mask only exposes
 positions <= the slot's length, and every such position was written by
 the current occupant.
+
+Speculative decoding (``serve/spec/``) scores a row's k+1 candidates
+with :meth:`SlotPool.spec_verify`, which writes nothing, and writes only
+the accepted prefix with :meth:`SlotPool.spec_commit`.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..models.generate import decode_step_slots, prefill_partial
+from ..models.generate import (decode_step_slots, prefill_partial,
+                               spec_commit_slots, spec_verify_slots)
 
 
 class SlotPool:
@@ -43,6 +48,7 @@ class SlotPool:
         self.lengths = np.zeros(n_slots, np.int64)
         self.admits: Dict[int, int] = {}     # bucket -> admits
         self.decode_steps = 0
+        self.verify_steps = 0
 
     def admit(self, tokens_padded, true_len: int, slot: int):
         """Prefill ``tokens_padded`` (1, bucket) into ``slot``; returns the
@@ -73,6 +79,22 @@ class SlotPool:
         self.lengths = np.where(np.asarray(active), self.lengths + 1,
                                 self.lengths)
         return logits
+
+    def spec_verify(self, tokens):
+        """Score every row's k+1 candidates ((n_slots, k+1) ints) in one
+        batched forward, without writing the pool. Returns (logits
+        (n_slots, k+1, vocab), sk, sv), sk/sv the per-layer f32
+        candidate K/V."""
+        self.verify_steps += 1
+        return spec_verify_slots(self.model, self.ks, self.vs,
+                                 self.lengths, tokens)
+
+    def spec_commit(self, sk, sv, commit) -> None:
+        """Write each row's accepted prefix (``commit`` (n_slots,) ints,
+        0: not speculating) from the verify's K/V and advance the
+        lengths by it."""
+        _, _, self.lengths = spec_commit_slots(self.ks, self.vs,
+                                               self.lengths, sk, sv, commit)
 
     def release(self, slot: int) -> None:
         """Zero a retired slot's length so the blockwise decode's trip

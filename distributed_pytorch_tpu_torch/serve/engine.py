@@ -21,10 +21,18 @@ own ``torch.Generator``, one draw per token, as ``generate`` does).
 pool (``serve/pages/``): identical prompt prefixes are computed once,
 pool exhaustion is typed back-pressure at admission and a typed
 per-request failure mid-decode, and the pool's page stats go into
-``stats()`` and the metrics log.
+``stats()`` and the metrics log. ``kv_dtype="q8"|"q4"`` keeps that pool
+block-quantized.
 
-Left for later slices: speculative decoding, KV quantization, tenant
-quotas and fault-injection hooks.
+``EngineConfig(spec_decode=True, draft_model=...)`` decodes greedy
+requests speculatively (``serve/spec/``): the draft proposes
+``draft_len`` tokens, one batched verify scores them, and only accepted
+tokens are committed, so the stream is the target's own; sampled
+requests share the batch non-speculatively. ``submit(tenant=)`` counts
+a request against its tenant's inflight quota
+(``DPX_SERVE_TENANT_MAX_INFLIGHT``).
+
+Left for later slices: the fault-injection hooks and trace spans.
 """
 
 from __future__ import annotations
@@ -45,9 +53,11 @@ from .cache import SlotPool
 from .metrics import request_record
 from .pages import PagedSlotPool
 from .scheduler import AdmissionScheduler
+from .spec import SpecConfig, SpecState, accept_greedy
 from .types import (FAILED, FINISHED, QUEUED, RUNNING, AdmissionRejected,
                     EngineStopped, PagePoolExhausted, Request,
-                    RequestDeadlineExceeded, RequestHandle, SamplingParams)
+                    RequestDeadlineExceeded, RequestHandle, SamplingParams,
+                    SpecDecodeError)
 
 
 def _default_buckets(cap: int) -> Tuple[int, ...]:
@@ -74,7 +84,14 @@ class EngineConfig:
     ``n_slots * ceil(max_len / page_len)``), ``prefix_share`` and
     ``kv_dtype`` default from ``DPX_SERVE_PAGE_LEN``,
     ``DPX_SERVE_N_PAGES``, ``DPX_SERVE_PREFIX_SHARE`` and
-    ``DPX_SERVE_KV_DTYPE``."""
+    ``DPX_SERVE_KV_DTYPE``; an explicit non-f32 ``kv_dtype`` on the
+    contiguous pool raises.
+
+    ``spec_decode=True`` (default ``DPX_SPEC_DECODE``) speculates with
+    ``draft_model`` (a ``TransformerLM`` of the same vocabulary on the
+    same device) proposing ``draft_len`` (default
+    ``DPX_SPEC_DRAFT_LEN``) tokens per iteration; without a draft, or
+    with a sliding-window model, it raises at construction."""
 
     n_slots: int = 4
     max_len: int = 256
@@ -87,6 +104,9 @@ class EngineConfig:
     n_pages: Optional[int] = None
     prefix_share: Optional[bool] = None
     kv_dtype: Optional[str] = None
+    spec_decode: Optional[bool] = None
+    draft_model: Optional[object] = None
+    draft_len: Optional[int] = None
 
 
 class InferenceEngine:
@@ -150,6 +170,32 @@ class InferenceEngine:
                     "quantized storage mode")
             self.pool = SlotPool(model, cfg.n_slots, cfg.max_len,
                                  window=self.window)
+        spec_on = (cfg.spec_decode if cfg.spec_decode is not None
+                   else _env.get("DPX_SPEC_DECODE"))
+        self._spec: Optional[SpecState] = None
+        if spec_on:
+            if self.window is not None:
+                raise ValueError(
+                    "spec_decode does not support sliding-window models: "
+                    "the verify attends the whole resident prefix")
+            if cfg.draft_model is None:
+                raise ValueError(
+                    "spec_decode=True requires draft_model "
+                    "(EngineConfig): there is nothing to propose with")
+            draft_len = (cfg.draft_len if cfg.draft_len is not None
+                         else _env.get("DPX_SPEC_DRAFT_LEN"))
+            self._spec = SpecState(
+                SpecConfig(draft_model=cfg.draft_model,
+                           draft_len=int(draft_len)),
+                cfg.n_slots, cfg.max_len)
+        # cumulative speculation accounting
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_iters = 0      # speculating row-iterations
+        self._spec_tokens = 0     # tokens emitted through spec commits
+        # per-tenant inflight quota (0 = unlimited), moved under _cond
+        self._tenant_max = int(_env.get("DPX_SERVE_TENANT_MAX_INFLIGHT"))
+        self._tenant_inflight: Dict[str, int] = {}
         self.metrics = cfg.metrics
         self._scheduler = AdmissionScheduler(cfg.max_queue)
         self._running: Dict[int, Request] = {}     # slot -> request
@@ -169,7 +215,8 @@ class InferenceEngine:
 
     def submit(self, prompt, params: Optional[SamplingParams] = None, *,
                generator: Optional[torch.Generator] = None,
-               on_token=None) -> RequestHandle:
+               on_token=None, tenant: Optional[str] = None
+               ) -> RequestHandle:
         """Enqueue one request; returns a handle at once.
 
         ``prompt``: (S,) int token ids. ``generator``: the request's
@@ -177,9 +224,12 @@ class InferenceEngine:
         with the request id); the engine draws from it exactly as
         ``generate()`` does, so a generator in the same state reproduces
         the stream standalone. ``on_token(token, index)`` is called from
-        the engine thread for every emitted token. Raises a typed
-        :class:`AdmissionRejected` when the request can never be served
-        or the bounded queue is full."""
+        the engine thread for every emitted token. ``tenant`` counts the
+        request against that tenant's inflight quota
+        (``DPX_SERVE_TENANT_MAX_INFLIGHT``) until it retires or fails.
+        Raises a typed :class:`AdmissionRejected` when the request can
+        never be served, or the bounded queue or the tenant's quota is
+        full."""
         sp = params or SamplingParams()
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         with self._cond:
@@ -196,14 +246,26 @@ class InferenceEngine:
                       generator=generator, submit_t=now,
                       deadline_t=(now + sp.deadline_ms / 1e3
                                   if sp.deadline_ms is not None else None),
-                      on_token=on_token)
+                      on_token=on_token, tenant=tenant)
         req.handle = RequestHandle(req)
         # enqueue under the lock the stop flag lives behind: a submit
         # racing shutdown either raises or lands before the final drain
         with self._cond:
             if self._stop:
                 raise EngineStopped("engine is shut down", request_id=rid)
+            if (tenant is not None and self._tenant_max > 0
+                    and self._tenant_inflight.get(tenant, 0)
+                    >= self._tenant_max):
+                raise AdmissionRejected(
+                    f"request {rid}: tenant {tenant!r} already has "
+                    f"{self._tenant_inflight[tenant]} inflight "
+                    f"request(s) (DPX_SERVE_TENANT_MAX_INFLIGHT="
+                    f"{self._tenant_max})", reason="tenant_quota",
+                    tenant=tenant, request_id=rid)
             self._scheduler.submit(req)   # may raise AdmissionRejected
+            if tenant is not None:
+                self._tenant_inflight[tenant] = \
+                    self._tenant_inflight.get(tenant, 0) + 1
             self._cond.notify_all()
         return req.handle
 
@@ -292,9 +354,24 @@ class InferenceEngine:
                "decode_steps": self.pool.decode_steps,
                "prefill_admits": dict(self.pool.admits),
                "buckets": self.buckets,
-               "paged": self._paged}
+               "paged": self._paged,
+               "spec_decode": self._spec is not None}
         if self._paged:
             out["pages"] = self.pool.page_stats()
+        if self._spec is not None:
+            out["spec"] = {
+                "draft_len": self._spec.cfg.draft_len,
+                "proposed": self._spec_proposed,
+                "accepted": self._spec_accepted,
+                "acceptance_rate": (
+                    self._spec_accepted / self._spec_proposed
+                    if self._spec_proposed else None),
+                "tokens_per_iteration": (
+                    self._spec_tokens / self._spec_iters
+                    if self._spec_iters else None),
+                "spec_tokens": self._spec_tokens,
+                "verify_steps": self.pool.verify_steps,
+                "draft_decode_steps": self._spec.pool.decode_steps}
         return out
 
     def _emit_snapshot(self) -> None:
@@ -315,6 +392,11 @@ class InferenceEngine:
                       "serve.kv_pool_bytes": ps["kv_pool_bytes"],
                       "serve.bytes_per_resident_token":
                           ps["bytes_per_resident_token"]})
+        if self._spec is not None and self._spec_proposed:
+            m["serve.spec_acceptance_rate"] = (self._spec_accepted
+                                               / self._spec_proposed)
+            m["serve.spec_tokens_per_iteration"] = (
+                self._spec_tokens / max(self._spec_iters, 1))
         self.metrics.event("metrics_snapshot", source="serve_engine",
                            step=self._iteration, metrics=m)
 
@@ -424,13 +506,24 @@ class InferenceEngine:
                 padded[0, :s] = torch.from_numpy(
                     req.prompt.astype(np.int64))
                 logits = self.pool.admit(padded, s, slot)
+            if self._spec is not None and req.params.temperature == 0.0:
+                # greedy requests speculate: prefill the draft's own
+                # slot too (a prompt no bucket fits runs unspeculated)
+                self._spec.admit(req.prompt, slot, self.buckets)
             req.admit_t = time.monotonic()
             req.admit_iteration = self._iteration
             self._emit(req, self._sample_for(req, logits))
 
     def _decode_all(self) -> None:
-        slots = sorted(self._running)
+        spec_slots: List[int] = []
+        if self._spec is not None:
+            spec_slots = [s for s in sorted(self._running)
+                          if self._spec.active[s]]
+        slots = [s for s in sorted(self._running) if s not in spec_slots]
         if self._paged:
+            # speculating rows take no part: their pages grow once
+            # acceptance is known (ensure_spec_capacity), so rejected
+            # drafts never demand a page
             for slot in list(slots):
                 req = self._running[slot]
                 try:
@@ -447,15 +540,108 @@ class InferenceEngine:
                         iteration=self._iteration),
                         outcome="no_free_pages")
                     slots.remove(slot)
-            if not slots:
-                return
-        active = np.zeros(self.config.n_slots, bool)
-        active[slots] = True
-        logits = self.pool.decode(
-            torch.from_numpy(self._cur_tokens).to(self.device), active)
+        if slots:
+            active = np.zeros(self.config.n_slots, bool)
+            active[slots] = True
+            logits = self.pool.decode(
+                torch.from_numpy(self._cur_tokens).to(self.device), active)
+            for slot in slots:
+                req = self._running[slot]
+                self._emit(req, self._sample_for(req, logits[slot:slot + 1]))
+        spec_slots = [s for s in spec_slots if s in self._running]
+        if spec_slots:
+            self._spec_step(spec_slots)
+
+    def _spec_fail(self, slots: List[int], cause: Exception,
+                   stage: str) -> None:
+        """Fail the speculating victims of a propose, verify or commit
+        fault, typed and stage-attributed; non-speculating co-residents
+        go on (the verify wrote nothing)."""
         for slot in slots:
+            req = self._running.get(slot)
+            if req is None:
+                continue
+            exc = SpecDecodeError(
+                f"request {req.request_id}: speculative {stage} failed "
+                f"after {len(req.out_tokens)} tokens: {cause!r}",
+                stage=stage, request_id=req.request_id,
+                iteration=self._iteration)
+            exc.__cause__ = cause
+            self._fail(req, exc, outcome="spec_decode")
+
+    def _spec_step(self, spec_slots: List[int]) -> None:
+        """One speculative iteration of the speculating slots: the draft
+        proposes k tokens each, one batched verify scores all k+1
+        positions, the longest matching prefix (and the bonus token) is
+        emitted, and only accepted positions are committed; rollback is
+        the draft's length rewind."""
+        spec = self._spec
+        k = spec.cfg.draft_len
+        try:
+            drafts = spec.propose(spec_slots, self._cur_tokens[spec_slots])
+        except Exception as e:  # noqa: BLE001 — victim containment
+            self._spec_fail(spec_slots, e, "propose")
+            return
+        tokens = np.zeros((self.config.n_slots, k + 1), np.int64)
+        tokens[spec_slots, 0] = self._cur_tokens[spec_slots]
+        tokens[spec_slots, 1:] = drafts
+        try:
+            logits, sk, sv = self.pool.spec_verify(
+                torch.from_numpy(tokens).to(self.device))
+            logits_np = logits[spec_slots].to(torch.float32).cpu().numpy()
+        except Exception as e:  # noqa: BLE001 — victim containment
+            self._spec_fail(spec_slots, e, "verify")
+            return
+        commit = np.zeros(self.config.n_slots, np.int64)
+        emits: Dict[int, List[int]] = {}
+        for i, slot in enumerate(spec_slots):
             req = self._running[slot]
-            self._emit(req, self._sample_for(req, logits[slot:slot + 1]))
+            sp = req.params
+            out, e = accept_greedy(
+                drafts[i], logits_np[i],
+                sp.max_new_tokens - len(req.out_tokens), sp.eos_token)
+            req.spec_proposed += k
+            req.spec_accepted += e - 1
+            self._spec_proposed += k
+            self._spec_accepted += e - 1
+            self._spec_iters += 1
+            commit[slot] = e
+            emits[slot] = out
+        if self._paged:
+            # only now, with the accepted counts known, may pages be
+            # demanded; exhaustion fails that victim typed (its commit
+            # zeroes, nothing of its iteration lands)
+            for slot in list(emits):
+                req = self._running[slot]
+                try:
+                    self.pool.ensure_spec_capacity(slot, int(commit[slot]))
+                except PagePoolExhausted as e:
+                    n_acc = int(commit[slot])
+                    commit[slot] = 0
+                    del emits[slot]
+                    self._fail(req, PagePoolExhausted(
+                        f"request {req.request_id}: page pool exhausted "
+                        f"committing {n_acc} accepted token(s) after "
+                        f"{len(req.out_tokens)} tokens ({e.needed} "
+                        f"page(s) needed, {e.free_pages} free)",
+                        needed=e.needed, free_pages=e.free_pages,
+                        request_id=req.request_id,
+                        iteration=self._iteration),
+                        outcome="no_free_pages")
+        try:
+            self.pool.spec_commit(sk, sv, commit)
+        except Exception as e:  # noqa: BLE001 — victim containment
+            self._spec_fail(list(emits), e, "commit")
+            return
+        alive = [s for s in emits if s in self._running]
+        spec.rollback(alive, commit[alive])
+        self._spec_tokens += int(commit[alive].sum()) if alive else 0
+        for slot in alive:
+            req = self._running[slot]
+            for tok in emits[slot]:
+                self._emit(req, tok)
+                if req.done:
+                    break
 
     def _sample_for(self, req: Request, logits) -> int:
         sp = req.params
@@ -485,6 +671,9 @@ class InferenceEngine:
     def _free_slot(self, req: Request) -> None:
         if req.slot is not None:
             self.pool.release(req.slot)
+            if self._spec is not None:
+                # draft state exits through the same funnel
+                self._spec.release(req.slot)
             self._running.pop(req.slot, None)
             self._free.append(req.slot)
             req.slot = None
@@ -492,6 +681,7 @@ class InferenceEngine:
     def _finish(self, req: Request, outcome: str) -> Dict:
         req.retire_iteration = self._iteration
         self._free_slot(req)
+        self._tenant_release(req)
         rec = request_record(req, outcome)
         req.handle.metrics = rec
         if self.metrics is not None:
@@ -509,6 +699,18 @@ class InferenceEngine:
         self._failed += 1
         self._finish(req, outcome)
         req.handle.future.set_exception(exc)
+
+    def _tenant_release(self, req: Request) -> None:
+        """Give the tenant its inflight credit back at any terminal
+        transition (retirement or typed failure, queued or running)."""
+        if req.tenant is None:
+            return
+        with self._cond:
+            n = self._tenant_inflight.get(req.tenant, 0) - 1
+            if n > 0:
+                self._tenant_inflight[req.tenant] = n
+            else:
+                self._tenant_inflight.pop(req.tenant, None)
 
     def _drain_on_stop(self) -> None:
         cause = f" (engine loop crashed: {self._crash!r})" \

@@ -33,7 +33,12 @@ def request_record(req: Request, outcome: str) -> Dict:
             "retire_iteration": req.retire_iteration,
             # paged KV prefix sharing (0/0 when unpaged or cold)
             "prefix_hit_pages": req.prefix_hit_pages,
-            "prefill_tokens_saved": req.prefill_tokens_saved}
+            "prefill_tokens_saved": req.prefill_tokens_saved,
+            "tenant": req.tenant,
+            # speculative decoding (0/0 when the request did not
+            # speculate)
+            "spec_proposed": req.spec_proposed,
+            "spec_accepted": req.spec_accepted}
 
 
 def percentile(xs: List[float], q: float) -> Optional[float]:
@@ -73,6 +78,13 @@ def aggregate(records: List[Dict], wall_s: Optional[float] = None) -> Dict:
                                   if prompt_toks else None)
         out["prefix_hit_pages"] = sum(r.get("prefix_hit_pages") or 0
                                       for r in ok)
+    proposed = sum(r.get("spec_proposed") or 0 for r in ok)
+    if proposed:
+        # speculative decoding: accepted drafts over proposed drafts
+        accepted = sum(r.get("spec_accepted") or 0 for r in ok)
+        out["spec_proposed"] = proposed
+        out["spec_accepted"] = accepted
+        out["spec_acceptance_rate"] = round(accepted / proposed, 4)
     if wall_s:
         out["wall_s"] = round(wall_s, 3)
         out["tokens_per_sec"] = round(toks / wall_s, 2)

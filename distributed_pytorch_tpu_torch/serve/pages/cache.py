@@ -1,10 +1,10 @@
 """PagedSlotPool: the paged, prefix-shared drop-in for ``serve.cache.
 SlotPool``.
 
-Counterpart of ``distributed_pytorch_tpu/serve/pages/cache.py`` at the
-model's own dtype (``kv_dtype="f32"``, the exact pages). KV memory is a
-block pool, per layer ONE ``(n_pages, Hkv, page_len, Dh)`` tensor for K
-and V, and each slot addresses its cache through a row of page ids:
+Counterpart of ``distributed_pytorch_tpu/serve/pages/cache.py``. KV
+memory is a block pool, per layer ONE ``(n_pages, Hkv, page_len, Dh)``
+tensor for K and V, and each slot addresses its cache through a row of
+page ids:
 
 - **prefix sharing**: full pages of a prompt are keyed in a radix index
   (:mod:`.prefix`); an admitted request reuses every resident page of
@@ -17,13 +17,20 @@ and V, and each slot addresses its cache through a row of page ids:
   allocation raises :class:`~..types.PagePoolExhausted` and changes
   nothing.
 
+``kv_dtype`` selects the resident storage (:mod:`.quant`): ``"f32"``
+keeps exact pages in the model's dtype; ``"q8"``/``"q4"`` keep
+block-quantized pages (int8, or nibble-packed uint8 ``(..., Dh // 2)``)
+with per-page-per-block f32 scales, and per-slot f32 tails holding each
+slot's partial page, so every element is quantized once, when its page
+completes. Speculative decoding scores candidates with
+:meth:`PagedSlotPool.spec_verify` (writing nothing) and commits the
+accepted prefix with :meth:`PagedSlotPool.spec_commit`, after
+:meth:`PagedSlotPool.ensure_spec_capacity` found its pages.
+
 The page tables and lengths live on the host (numpy), so the decode
 knows its page count without a device sync; the pool tensors are
-allocated once and written in place. Not ported yet: the quantized
-pages (``kv_dtype`` ``"q8"``/``"q4"``, ROADMAP.md Queue A item 4.1),
-speculative decoding (``ensure_spec_capacity``, ``spec_verify``,
-``spec_commit``: item 4.2) and the KV handoff (``extract*``,
-``adopt*``: item 4.4).
+allocated once and written in place. Not ported yet: the KV handoff
+(``extract*``, ``adopt*``: ROADMAP.md Queue A item 4.4).
 """
 
 from __future__ import annotations
@@ -33,13 +40,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ...models.generate import decode_step_slots_paged, prefill_partial_paged
+from ...models.generate import (decode_step_slots_paged,
+                                prefill_partial_paged,
+                                spec_commit_slots_paged,
+                                spec_verify_slots_paged)
 from ..types import AdmissionRejected
 from .pool import PagePool
 from .prefix import PrefixIndex
-
-#: resident storage formats of the JAX pool; only the exact one is ported
-KV_DTYPES = ("f32", "q8", "q4")
+from .quant import num_page_blocks, resolve_kv_bits
 
 
 class PagedSlotPool:
@@ -51,14 +59,7 @@ class PagedSlotPool:
                  kv_dtype: str = "f32"):
         if max_len < 1:
             raise ValueError(f"max_len must be >= 1, got {max_len}")
-        if kv_dtype not in KV_DTYPES:
-            raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got "
-                             f"{kv_dtype!r}")
-        if kv_dtype != "f32":
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r} (block-quantized pages with "
-                "per-page scales) is not ported yet (ROADMAP.md Queue A "
-                "item 4.1, KV quantization)")
+        self.quant_bits = resolve_kv_bits(kv_dtype)
         self.model = model
         self.n_slots = n_slots
         self.max_len = max_len
@@ -68,13 +69,34 @@ class PagedSlotPool:
         self.kv_dtype = kv_dtype
         self.pages_per_slot = -(-max_len // page_len)   # ceil
         dh = model.dim // model.n_heads
-        shape = (n_pages, model.n_kv_heads, page_len, dh)
+        h_kv, dev, n_layers = model.n_kv_heads, model.device, model.n_layers
+        self.k_scales = self.v_scales = self.k_tail = self.v_tail = None
+        if self.quant_bits is None:
+            shape, store = (n_pages, h_kv, page_len, dh), model.dtype
+        else:
+            if self.quant_bits == 4 and dh % 2:
+                raise ValueError(
+                    f"kv_dtype='q4' packs two nibbles per byte along the "
+                    f"head dim, which must be even (got Dh={dh})")
+            shape = (n_pages, h_kv, page_len,
+                     dh // 2 if self.quant_bits == 4 else dh)
+            store = torch.uint8 if self.quant_bits == 4 else torch.int8
+            nb = num_page_blocks(h_kv, page_len, dh)
+            # scale 1 is the codec's all-zero snap: a never-written page
+            # dequantizes to exact zeros
+            self.k_scales, self.v_scales = (
+                [torch.ones((n_pages, nb), dtype=torch.float32, device=dev)
+                 for _ in range(n_layers)] for _ in range(2))
+            self.k_tail, self.v_tail = (
+                [torch.zeros((n_slots, h_kv, page_len, dh),
+                             dtype=torch.float32, device=dev)
+                 for _ in range(n_layers)] for _ in range(2))
         self.k_pages: List[torch.Tensor] = [
-            torch.zeros(shape, dtype=model.dtype, device=model.device)
-            for _ in range(model.n_layers)]
+            torch.zeros(shape, dtype=store, device=dev)
+            for _ in range(n_layers)]
         self.v_pages: List[torch.Tensor] = [
-            torch.zeros(shape, dtype=model.dtype, device=model.device)
-            for _ in range(model.n_layers)]
+            torch.zeros(shape, dtype=store, device=dev)
+            for _ in range(n_layers)]
         self.tables = np.zeros((n_slots, self.pages_per_slot), np.int64)
         self.lengths = np.zeros((n_slots,), np.int64)
         self.owned: List[List[int]] = [[] for _ in range(n_slots)]
@@ -82,11 +104,21 @@ class PagedSlotPool:
         self.index = PrefixIndex(page_len)
         self.admits: Dict[int, int] = {}     # tail bucket -> admits
         self.decode_steps = 0
+        self.verify_steps = 0
         # cumulative sharing counters (engine metrics)
         self.prefix_lookups = 0
         self.prefix_hit_pages_total = 0
         self.prefill_tokens_saved_total = 0
         self.prompt_tokens_total = 0
+
+    def _quant_kw(self) -> Dict:
+        """The quantized pool's extra arguments of the paged ops (none
+        for an exact pool)."""
+        if self.quant_bits is None:
+            return {}
+        return dict(kv_bits=self.quant_bits, k_scales=self.k_scales,
+                    v_scales=self.v_scales, k_tail=self.k_tail,
+                    v_tail=self.v_tail)
 
     # -- allocation --------------------------------------------------------
 
@@ -158,9 +190,12 @@ class PagedSlotPool:
         padded[0, :tail_len] = torch.from_numpy(
             np.asarray(prompt[offset:], np.int64))
         self.admits[bucket] = self.admits.get(bucket, 0) + 1
-        logits, _, _ = prefill_partial_paged(
+        kw = self._quant_kw()
+        if kw:
+            kw["slot"] = slot
+        logits = prefill_partial_paged(
             self.model, self.k_pages, self.v_pages, self.tables[slot],
-            padded, offset, tail_len, page_len=L)
+            padded, offset, tail_len, page_len=L, **kw)[0]
         self.lengths[slot] = s
         if self.prefix_share:
             self.index.insert(prompt, s // L, row, self.pool)
@@ -186,11 +221,50 @@ class PagedSlotPool:
         write the pool nor advance). Returns (n_slots, vocab) logits."""
         self.decode_steps += 1
         active = np.asarray(active, bool)
-        logits, _, _ = decode_step_slots_paged(
+        logits = decode_step_slots_paged(
             self.model, self.k_pages, self.v_pages, self.tables,
-            self.lengths, tokens, active, page_len=self.page_len)
+            self.lengths, tokens, active, page_len=self.page_len,
+            **self._quant_kw())[0]
         self.lengths[active] += 1
         return logits
+
+    def ensure_spec_capacity(self, slot: int, n_new: int) -> None:
+        """Grow ``slot``'s page table so its next ``n_new`` committed
+        positions all have pages: called once acceptance is known, so
+        only accepted tokens demand pages. All-or-nothing: on
+        :class:`PagePoolExhausted` no slot state changed."""
+        if n_new <= 0:
+            return
+        last = int(self.lengths[slot]) + n_new - 1
+        row = self.owned[slot]
+        missing = last // self.page_len + 1 - len(row)
+        if missing <= 0:
+            return
+        for pid in self._alloc(missing):     # all-or-nothing; may raise
+            self.tables[slot, len(row)] = pid
+            row.append(pid)
+
+    def spec_verify(self, tokens):
+        """Score every row's k+1 candidates ((n_slots, k+1) ints) in one
+        batched forward without writing the pool (so a rejection, at a
+        page boundary too, never quantizes a partial page). Returns
+        (logits (n_slots, k+1, vocab), sk, sv), sk/sv the per-layer f32
+        candidate K/V."""
+        self.verify_steps += 1
+        return spec_verify_slots_paged(
+            self.model, self.k_pages, self.v_pages, self.tables,
+            self.lengths, tokens, page_len=self.page_len,
+            **self._quant_kw())
+
+    def spec_commit(self, sk, sv, commit) -> None:
+        """Write each row's accepted prefix (``commit`` (n_slots,) ints,
+        0: not speculating) into its pages and advance the host lengths;
+        in a quantized pool a page quantizes once, when an accepted
+        token completes it."""
+        spec_commit_slots_paged(self.k_pages, self.v_pages, self.tables,
+                                self.lengths, sk, sv, commit,
+                                page_len=self.page_len, **self._quant_kw())
+        self.lengths += np.asarray(commit, np.int64)
 
     def release(self, slot: int) -> None:
         """Drop the slot's references (retirement, failure or drain):
@@ -212,17 +286,32 @@ class PagedSlotPool:
         return self.prefill_tokens_saved_total / self.prompt_tokens_total
 
     def kv_bits(self) -> int:
-        """Resident bits per KV element (the model dtype's width)."""
+        """Resident bits per KV element: the quant width, or the model
+        dtype's width for exact pages."""
+        if self.quant_bits is not None:
+            return self.quant_bits
         return self.k_pages[0].element_size() * 8
 
+    @staticmethod
+    def _nbytes(tensors) -> int:
+        return sum(t.numel() * t.element_size() for t in tensors)
+
     def kv_pool_bytes(self) -> int:
-        """Resident KV footprint: pages, K and V, all layers."""
-        return sum(t.numel() * t.element_size()
-                   for t in self.k_pages + self.v_pages)
+        """Resident KV footprint: pages, and in a quantized pool their
+        scales and the per-slot tails, K and V, all layers."""
+        total = self._nbytes(self.k_pages + self.v_pages)
+        if self.quant_bits is not None:
+            total += self._nbytes(self.k_scales + self.v_scales
+                                  + self.k_tail + self.v_tail)
+        return total
 
     def bytes_per_resident_token(self) -> float:
-        """Pool bytes per token position the pool can hold."""
-        return self.kv_pool_bytes() / float(self.n_pages * self.page_len)
+        """Pool bytes (pages and scales; the tails are per slot, not per
+        page) per token position the pool can hold."""
+        total = self._nbytes(self.k_pages + self.v_pages)
+        if self.quant_bits is not None:
+            total += self._nbytes(self.k_scales + self.v_scales)
+        return total / float(self.n_pages * self.page_len)
 
     def page_stats(self) -> Dict:
         return {"n_pages": self.n_pages,

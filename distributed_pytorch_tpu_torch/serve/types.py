@@ -4,8 +4,8 @@ request lifecycle and the typed failure vocabulary.
 The port's own copy of ``distributed_pytorch_tpu/serve/types.py`` (the
 port imports nothing of the JAX package). Every failure is a typed
 exception carrying the request id and the engine iteration, so callers
-never parse message strings. Handoff and speculative-decoding errors
-wait for the slices that bring those features.
+never parse message strings. Handoff errors wait for the slice that
+brings the KV handoff.
 """
 
 from __future__ import annotations
@@ -47,11 +47,15 @@ class ServeError(RuntimeError):
 class AdmissionRejected(ServeError):
     """The front door refused the request outright (bounded queue full,
     prompt longer than the largest bucket, prompt + max_new beyond the
-    slot cache). Raised synchronously from ``submit`` with ``reason``."""
+    slot cache, the tenant's inflight quota full). Raised synchronously
+    from ``submit`` with ``reason`` (and ``tenant`` for
+    ``reason="tenant_quota"``)."""
 
-    def __init__(self, msg: str, *, reason: str = "rejected", **kw):
+    def __init__(self, msg: str, *, reason: str = "rejected",
+                 tenant: Optional[str] = None, **kw):
         super().__init__(msg, **kw)
         self.reason = reason
+        self.tenant = tenant
 
 
 class RequestDeadlineExceeded(ServeError):
@@ -67,6 +71,19 @@ class RequestDeadlineExceeded(ServeError):
 
 class EngineStopped(ServeError):
     """The engine shut down while the request was still in flight."""
+
+
+class SpecDecodeError(ServeError):
+    """A speculative-decoding step (``serve/spec/``) failed for this
+    request: the draft's proposal loop, the batched verify or the commit
+    of the accepted prefix raised. ``stage`` (``"propose"``,
+    ``"verify"`` or ``"commit"``) says which. Only the speculating
+    requests fail: the verify writes nothing, so co-resident
+    non-speculative streams go on unchanged."""
+
+    def __init__(self, msg: str, *, stage: str = "verify", **kw):
+        super().__init__(msg, **kw)
+        self.stage = stage
 
 
 class PagePoolExhausted(ServeError):
@@ -113,6 +130,11 @@ class Request:
     # unpaged)
     prefix_hit_pages: int = 0
     prefill_tokens_saved: int = 0
+    #: the tenant its quota counts against (None: untenanted)
+    tenant: Optional[str] = None
+    #: speculative decoding: drafts proposed for it and accepted
+    spec_proposed: int = 0
+    spec_accepted: int = 0
     retire_iteration: Optional[int] = None
     first_token_t: Optional[float] = None
     last_token_t: Optional[float] = None

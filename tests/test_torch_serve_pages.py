@@ -21,8 +21,9 @@ JAX package's, and the engine's paged mode.
   drain; typed exhaustion mid-decode fails only the victim; admission
   back-pressure requeues and serves after a retirement; worst-case
   submit rejection; ``prefix_share=False``; windowed models rejected;
-  page metrics reach the logger; ``kv_dtype="q8"`` raises naming its
-  ROADMAP item.
+  page metrics reach the logger; ``kv_dtype="q8"|"q4"`` builds the
+  quantized pool (``tests/test_torch_kvq.py`` holds it to JAX's) and the
+  contiguous engine refuses it.
 
 Serial run time ~19 s.
 """
@@ -313,7 +314,8 @@ def test_paged_prefill_and_decode_match_jax():
         assert torch.equal(a, b)
     np.testing.assert_allclose(to_np(got)[[0, 2]], to_np(ref)[[0, 2]],
                                rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="KV quantization"):
+    # a quantized step needs the pool's scales and tails
+    with pytest.raises(ValueError, match="k_scales"):
         decode_step_slots_paged(pm, tk, tv, tables, lengths,
                                 torch.from_numpy(tokens), active,
                                 page_len=pl, kv_bits=8)
@@ -573,11 +575,14 @@ def test_paged_metrics_flow_to_logger(tmp_path):
 
 @pytest.mark.parametrize("kv_dtype", ["q8", "q4"])
 def test_quantized_kv_raises_naming_the_item(kv_dtype, monkeypatch):
+    """Quantized pages are ported: an explicit or env-driven q8/q4 builds
+    the quantized paged pool; only the contiguous engine still refuses
+    an explicit one, naming the paged pool."""
     model = _lm1()
-    with pytest.raises(NotImplementedError, match="Queue A item 4.1"):
-        _paged(model, kv_dtype=kv_dtype)
+    bits = {"q8": 8, "q4": 4}[kv_dtype]
+    assert _paged(model, kv_dtype=kv_dtype).stats()["pages"]["kv_bits"] \
+        == bits
     monkeypatch.setenv("DPX_SERVE_KV_DTYPE", kv_dtype)
-    with pytest.raises(NotImplementedError, match="KV quantization"):
-        _paged(model)
+    assert _paged(model).pool.quant_bits == bits
     with pytest.raises(ValueError, match="paged=True"):
         InferenceEngine(model, EngineConfig(kv_dtype=kv_dtype))

@@ -162,11 +162,40 @@ non-zero at once:
               a random draw of every weight within +-scale/2 of its
               channel moves them; ``quantized_bytes`` beside the bf16
               model's; 4 greedy requests through the engine on both
-              models, TPOT and flash launches.
+              models, TPOT and flash launches;
+24. serve_disagg — serve_paged's traffic through ``DisaggEngine(n_slots=4)``
+              (page 16, 512 pages a pool) at handoff f32, q8 and q4 on
+              bf16 pools and q8 on q8 pools (the codes pass through): the
+              f32 streams must equal serve_paged's and every first token
+              its first token; the booked handoff bytes must equal
+              ``kv_wire_bytes`` of each frame, the frames' KV sections and
+              688,914,432 / 172,901,376 / 86,787,072 B (f32 / q8 >= 3.5);
+              requests 2-8 must hit the prefill side's prefix pages, the
+              flash forward launch 12 times per prefill admission, every
+              page of both pools be free after the drain and each
+              request's queue + prefill + handoff + decode ms sum to its
+              TTFT within 1 ms; then a transport cut on its second send
+              must fail that request ``PrefillEngineDied`` (engine
+              "prefill") while the decoding stream finishes equal.
+              Printed: divergence, one-step logit deltas, host ms per
+              frame of extract / encode / decode / adopt, decode-step
+              wall during a prefill and not, TTFT/TPOT beside
+              serve_paged's;
+25. serve_fleet — ``FleetRouter`` over two replicas of serve_paged's
+              paged config: (a) the 8 requests (affinity hits and spills
+              printed) with streams equal serve_paged's; (b) four
+              streaming requests' home killed: each fails
+              ``ReplicaFailed`` naming it, the prompts resubmitted
+              re-home to the survivor with equal streams; 12 flash
+              launches per admission in both;
+26. serve_lm_example — ``examples/serve_lm.py --disagg`` at its default
+              width in a subprocess (300 s limit): exit 0 and six
+              request lines with the TTFT decomposition.
 
 Then the ``kernels`` line (each kernel's design, ``wgmma+tma`` or
 ``scalar_fma``, as its bf16 path runs it; the forward at both shapes and
-its launches in ``serve_kvq``, ``serve_spec`` and ``serve_int8``),
+its launches in ``serve_kvq``, ``serve_spec``, ``serve_int8``,
+``serve_disagg`` and ``serve_fleet``),
 the nvidia-smi line and, last, the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1768,7 +1797,8 @@ def phase_serve_paged(torch, model):
         fail(f"serve_paged: {live_after} live pages after retirement, "
              f"{free_after_drain} of {ps['n_pages']} free after draining "
              "the index")
-    return outs
+    return outs, {k: agg[k] for k in ("ttft_ms_p50", "ttft_ms_p99",
+                                      "tpot_ms_p50", "tpot_ms_p99")}
 
 
 def run_engine(torch, tflash, model, cfg, prompts, sps, gens=None):
@@ -2201,6 +2231,485 @@ def phase_serve_int8(torch, tflash, model):
     return runs["int8"]["launches"]
 
 
+# -- PR-9 phases: disaggregated serving and the fleet -------------------------
+
+HANDOFF_CASES = (("f32", "f32"), ("q8", "f32"), ("q4", "f32"), ("q8", "q8"))
+# the KV bytes of serve_paged's 8 prompts at each handoff width: 584 pages
+# (66-80 per prompt) x 12 layers x K,V = 14,016 page tensors of 12 heads x
+# 16 x 64 = 12,288 values; f32 4 B each, q8 1 B + 12 f32 scales, q4 half a
+# byte + 12 f32 scales
+HANDOFF_BYTES = {"f32": 688_914_432, "q8": 172_901_376, "q4": 86_787_072}
+SERVE_LM_TIMEOUT_S = 300
+
+
+def handoff_arithmetic():
+    pe = FLAGSHIP["dim"] * PAGE_LEN
+    n = FLAGSHIP["n_layers"] * 2 * sum(
+        -(-(SYSTEM_PROMPT + t) // PAGE_LEN) for t in PAGED_TAILS)
+    return {"f32": n * pe * 4, "q8": n * (pe + 4 * -(-pe // 1024)),
+            "q4": n * (pe // 2 + 4 * -(-pe // 1024))}
+
+
+class _Timed:
+    """Wrap ``obj.name`` (a method or a module function) so every call's
+    host ms lands in ``sink``; ``sync`` first drains the calling
+    thread's CUDA stream, so the call's own time is read, not the queued
+    work before it. ``spans`` keeps (start, end) monotonic pairs."""
+
+    def __init__(self, torch, obj, name, sink, sync=False, spans=None,
+                 after_sync=False):
+        self.obj, self.name = obj, name
+        self.orig = getattr(obj, name)
+        orig = self.orig
+
+        def call(*a, **k):
+            if sync:
+                torch.cuda.current_stream().synchronize()
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            if after_sync:
+                torch.cuda.current_stream().synchronize()
+            t1 = time.perf_counter()
+            sink.append((t1 - t0) * 1e3)
+            if spans is not None:
+                spans.append((t0, t1))
+            return out
+        setattr(obj, name, call)
+
+    def restore(self):
+        setattr(self.obj, self.name, self.orig)
+
+
+def quantiles(xs):
+    xs = sorted(xs)
+    if not xs:
+        return None
+    return dict(n=len(xs), p50=xs[len(xs) // 2],
+                p99=xs[min(len(xs) - 1, int(round(0.99 * (len(xs) - 1))))],
+                mean=sum(xs) / len(xs))
+
+
+def run_disagg(torch, tflash, model, width, kv, prompts, sp):
+    """One DisaggEngine run of ``prompts`` at handoff ``width`` over pools
+    of ``kv_dtype`` ``kv``, the flash count set to 0 just before and read
+    just after, with per-frame host ms of extract, encode, decode_frame
+    and adopt, and each decode step's wall beside the prefills' spans."""
+    from distributed_pytorch_tpu_torch.serve import (DisaggConfig,
+                                                     DisaggEngine)
+    from distributed_pytorch_tpu_torch.serve.disagg import (LocalTransport,
+                                                            frames)
+
+    class Recording(LocalTransport):
+        """Keeps each frame's KV section length, read off its bytes."""
+
+        def __init__(self):
+            super().__init__()
+            self.kv_sections = []
+
+        def send(self, frame, kv_bytes):
+            hdr = np.frombuffer(frame, np.int64, 12)
+            n_t = int(hdr[4]) * 2 * int(hdr[5])
+            self.kv_sections.append(
+                (len(frame) - 8 * 12 - 4 * (1 + n_t) - 4 * int(hdr[10]),
+                 int(hdr[11]), int(hdr[4]), int(hdr[5]),
+                 int(hdr[6] * hdr[7] * hdr[8])))
+            super().send(frame, kv_bytes)
+
+    cfg = DisaggConfig(n_slots=4, max_len=2048, page_len=PAGE_LEN,
+                       n_pages=N_PAGES, handoff_width=width, kv_dtype=kv)
+    transport = Recording()
+    eng = DisaggEngine(model, cfg, transport=transport)
+    host = {k: [] for k in ("extract", "encode", "decode_frame", "adopt")}
+    step_ms, step_spans, prefill_spans, admit_ms = [], [], [], []
+    matched = eng.prefill.pool.quant_bits is not None \
+        and eng.prefill.pool.quant_bits == eng.prefill.bits
+    wraps = [
+        _Timed(torch, eng.prefill.pool, "admit", admit_ms,
+               spans=prefill_spans, after_sync=True),
+        _Timed(torch, eng.prefill.pool,
+               "extract_quantized" if matched else "extract",
+               host["extract"], sync=True),
+        _Timed(torch, frames, "encode_frame_quantized" if matched
+               else "encode_frame", host["encode"]),
+        _Timed(torch, frames, "decode_frame", host["decode_frame"]),
+        _Timed(torch, eng.decode.pool,
+               "adopt_quantized" if (kv != "f32" and kv == width)
+               else "adopt", host["adopt"]),
+        _Timed(torch, eng.decode.pool, "decode", step_ms,
+               spans=step_spans, after_sync=True)]
+    tflash.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with eng:
+            hs = [eng.submit(p, sp) for p in prompts]
+            outs = [h.result(timeout=900) for h in hs]
+    finally:
+        for w in wraps:
+            w.restore()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tflash.LAUNCHES["flash_attention_fwd"]
+    busy = [ms for ms, (a, b) in zip(step_ms, step_spans)
+            if any(a < pe and b > ps for ps, pe in prefill_spans)]
+    idle = [ms for ms, (a, b) in zip(step_ms, step_spans)
+            if not any(a < pe and b > ps for ps, pe in prefill_spans)]
+    return dict(eng=eng, handles=hs, outs=outs, wall=wall,
+                launches=launches, transport=transport, host=host,
+                admit_ms=admit_ms, step_during_prefill=busy,
+                step_idle=idle)
+
+
+def one_step_deltas(torch, model, prompts):
+    """serve_paged's first four prompts admitted into one exact pool, one
+    4-slot decode step there; the same pages handed to another exact pool
+    through an f32 / q8 / q4 frame, the same step there: the largest
+    logit difference of each width from the unsplit step."""
+    from distributed_pytorch_tpu_torch.serve.disagg import (decode_frame,
+                                                            encode_frame)
+    from distributed_pytorch_tpu_torch.serve.pages import PagedSlotPool
+    src = PagedSlotPool(model, 4, 2048, page_len=PAGE_LEN, n_pages=N_PAGES)
+    active = np.ones(4, bool)
+    out = {}
+    with torch.inference_mode():
+        lg = torch.cat([src.admit(p, slot, (2048,))[0]
+                        for slot, p in enumerate(prompts[:4])])
+        first = lg.argmax(-1)
+        handed = [src.extract(slot) for slot in range(4)]
+        for slot in range(4):
+            src.ensure_decode_capacity(slot)
+        ref = src.decode(first, active).float()
+        for width, bits in (("f32", None), ("q8", 8), ("q4", 4)):
+            dst = PagedSlotPool(model, 4, 2048, page_len=PAGE_LEN,
+                                n_pages=N_PAGES)
+            for slot, (length, ks, vs) in enumerate(handed):
+                fr = decode_frame(encode_frame(slot, length, lg[slot].float()
+                                               .cpu().numpy(), ks, vs,
+                                               bits)[0])
+                dst.adopt(slot, fr.length, fr.ks, fr.vs)
+                dst.ensure_decode_capacity(slot)
+            out[width] = float((dst.decode(first, active).float()
+                                - ref).abs().max())
+            del dst
+    del src, handed
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_disagg(torch, tflash, model, paged_outs, paged_slo):
+    """serve_paged's traffic through DisaggEngine at handoff f32, q8 and q4
+    on exact pools and q8 on q8 pools, then a prefill death mid-handoff."""
+    from distributed_pytorch_tpu_torch.serve import (DisaggConfig,
+                                                     DisaggEngine,
+                                                     PrefillEngineDied,
+                                                     SamplingParams,
+                                                     aggregate)
+    from distributed_pytorch_tpu_torch.serve.disagg import (LocalTransport,
+                                                            TransportSevered,
+                                                            kv_wire_bytes)
+    prompts, rng = paged_traffic()
+    sp = SamplingParams(max_new_tokens=MAX_NEW)
+    n_layers = FLAGSHIP["n_layers"]
+    pe = FLAGSHIP["dim"] * PAGE_LEN
+    with DisaggEngine(model, DisaggConfig(       # warm-up, not measured
+            n_slots=4, max_len=2048, page_len=PAGE_LEN,
+            n_pages=N_PAGES)) as eng:
+        eng.submit(rng.integers(0, FLAGSHIP["vocab"], 300),
+                   SamplingParams(max_new_tokens=2)).result(timeout=900)
+    want_bytes = handoff_arithmetic()
+    bad, rec, launches = [], {}, {}
+    for width, kv in HANDOFF_CASES:
+        label = width if kv == "f32" else f"{width}_on_{kv}_pool"
+        run = run_disagg(torch, tflash, model, width, kv, prompts, sp)
+        eng, hs = run["eng"], run["handles"]
+        st = eng.stats()
+        bits = {"f32": None, "q8": 8, "q4": 4}[width]
+        formula = sum(kv_wire_bytes(n_layers, -(-len(p) // PAGE_LEN), pe,
+                                    bits) for p in prompts)
+        sections = run["transport"].kv_sections
+        section_bytes = sum(x[0] for x in sections)
+        booked = st["handoff"]["bytes_sent"]
+        admits = sum(st["prefill"]["prefill_admits"].values())
+        hits = [h.metrics["prefix_hit_pages"] for h in hs]
+        decomp, sums = [], []
+        for h in hs:
+            m = h.metrics
+            parts = [m[k] for k in ("queue_ms", "prefill_ms", "handoff_ms",
+                                    "decode_ms")]
+            decomp.append(dict(zip(("queue_ms", "prefill_ms", "handoff_ms",
+                                    "decode_ms"), parts),
+                               ttft_ms=m["ttft_ms"]))
+            sums.append(abs(sum(parts) - m["ttft_ms"]))
+        ppool, dpool = eng.prefill.pool, eng.decode.pool
+        live = (ppool.pool.live_pages(), dpool.pool.live_pages())
+        while (pid := ppool.index.evict_lru(ppool.pool)) is not None:
+            ppool.pool.reclaim(pid)
+            ppool.pool.release_to_free(pid)
+        free = (ppool.pool.free_pages, dpool.pool.free_pages)
+        agg = aggregate([h.metrics for h in hs], wall_s=run["wall"])
+        same = [bool(np.array_equal(a, b))
+                for a, b in zip(run["outs"], paged_outs)]
+        r = dict(handoff_width=width, kv_dtype=kv,
+                 streams_equal_serve_paged=same,
+                 first_tokens_equal=[int(a[0]) == int(b[0]) for a, b in
+                                     zip(run["outs"], paged_outs)],
+                 greedy_divergence_rate=float(np.mean(
+                     [a != b for x, y in zip(run["outs"], paged_outs)
+                      for a, b in zip(x, y)])),
+                 handoff_bytes_booked=booked, handoff_bytes_formula=formula,
+                 kv_section_bytes=section_bytes,
+                 frames=st["handoff"]["frames_sent"],
+                 prefix_hit_pages=hits, flash_launches=run["launches"],
+                 prefill_admits=admits, live_pages_after=live,
+                 free_pages_after_index_drain=free,
+                 decomposition=decomp, decomposition_max_gap_ms=max(sums),
+                 host_ms_per_frame={k: quantiles(v)
+                                    for k, v in run["host"].items()},
+                 prefill_admit_ms=quantiles(run["admit_ms"]),
+                 decode_step_ms_during_prefill=quantiles(
+                     run["step_during_prefill"]),
+                 decode_step_ms_idle=quantiles(run["step_idle"]),
+                 wall_s=run["wall"],
+                 **{k: agg[k] for k in ("ttft_ms_p50", "ttft_ms_p99",
+                                        "tpot_ms_p50", "tpot_ms_p99",
+                                        "tokens_per_sec", "handoff_ms_p50",
+                                        "handoff_ms_p99", "prefill_ms_p50")})
+        rec[label] = r
+        launches[label] = run["launches"]
+        if width == "f32" and not all(same):
+            bad.append(f"{label}: streams differ from serve_paged's {same}")
+        if not all(r["first_tokens_equal"]):
+            bad.append(f"{label}: a first token differs")
+        if not (booked == formula == section_bytes == want_bytes[width]
+                == HANDOFF_BYTES[width]) or any(
+                    x[0] != x[1] or x[1] != kv_wire_bytes(x[2], x[3], x[4],
+                                                          bits)
+                    for x in sections):
+            bad.append(f"{label}: handoff bytes booked {booked}, formula "
+                       f"{formula}, sections {section_bytes}, want "
+                       f"{HANDOFF_BYTES[width]}")
+        if hits[0] != 0 or not all(n > 0 for n in hits[1:]):
+            bad.append(f"{label}: prefill-side prefix hits {hits}")
+        if run["launches"] != n_layers * admits or admits != len(prompts):
+            bad.append(f"{label}: {run['launches']} flash launches for "
+                       f"{admits} prefill admissions")
+        if live != (0, 0) or free != (ppool.n_pages, dpool.n_pages):
+            bad.append(f"{label}: live pages {live}, free {free} after the "
+                       f"drain")
+        if max(sums) > 1.0:
+            bad.append(f"{label}: the decomposition misses TTFT by "
+                       f"{max(sums)} ms")
+        del run, eng, hs
+        torch.cuda.empty_cache()
+    ratio = rec["f32"]["handoff_bytes_booked"] / rec["q8"][
+        "handoff_bytes_booked"]
+    if ratio < 3.5:
+        bad.append(f"f32 / q8 handoff bytes {ratio} < 3.5")
+
+    # victim-only failure: the transport dies on its second send
+    class SeverSecond(LocalTransport):
+        def send(self, frame, kv_bytes):
+            if self.frames_sent == 1:
+                raise TransportSevered("handoff channel cut (test double)")
+            super().send(frame, kv_bytes)
+
+    eng = DisaggEngine(model, DisaggConfig(
+        n_slots=4, max_len=2048, page_len=PAGE_LEN, n_pages=N_PAGES),
+        transport=SeverSecond())
+    with eng:
+        ha = eng.submit(prompts[0], sp)
+        while not ha.tokens:
+            time.sleep(0.005)
+        hb = eng.submit(prompts[1], sp)
+        try:
+            hb.result(timeout=900)
+            victim = "no error"
+        except PrefillEngineDied as e:
+            victim = dict(error="PrefillEngineDied", engine=e.engine,
+                          request_id=e.request_id)
+        out_a = ha.result(timeout=900)
+    survivor_equal = bool(np.array_equal(out_a, paged_outs[0]))
+    rec["victim_only"] = dict(victim=victim, survivor_equal=survivor_equal,
+                              decode_live_pages_after=eng.decode.pool.pool
+                              .live_pages())
+    if not (isinstance(victim, dict) and victim["engine"] == "prefill"
+            and victim["request_id"] == hb.request_id and survivor_equal):
+        bad.append(f"victim-only failure: victim {victim}, survivor equal "
+                   f"{survivor_equal}")
+    del eng
+    torch.cuda.empty_cache()
+    rec["one_step_max_logit_delta"] = one_step_deltas(torch, model, prompts)
+    emit(phase="serve_disagg", card=torch.cuda.get_device_name(0),
+         system_prompt=SYSTEM_PROMPT, tails=list(PAGED_TAILS),
+         max_new=MAX_NEW, page_len=PAGE_LEN, n_pages=N_PAGES,
+         want_handoff_bytes=HANDOFF_BYTES, f32_over_q8=ratio,
+         f32_over_q4=rec["f32"]["handoff_bytes_booked"]
+         / rec["q4"]["handoff_bytes_booked"],
+         monolithic_paged=paged_slo, **rec)
+    if bad:
+        fail("serve_disagg: " + "; ".join(bad))
+    return launches
+
+
+def divergence(torch, model, prompts, outs, refs):
+    """Where each stream first leaves its reference, with the reference's
+    top-2 logit gap there (how near a tie the flipped token was)."""
+    out = []
+    for i, (p, a, b) in enumerate(zip(prompts, outs, refs)):
+        if not np.array_equal(a, b):
+            t = int(np.argmax(a != b))
+            out.append(dict(request=i, position=t, top2_gap=top2_gap(
+                torch, model, np.concatenate([p, b[:t]]).astype(np.int32))))
+    return out
+
+
+#: the kill case's four prompts: tails 64-160, whose warm (prefix-hit)
+#: and cold admissions serve_paged already holds to one stream (a warm
+#: request may re-home to a replica where the prompt is cold, or back)
+KILL_PROMPTS = slice(1, 5)
+
+
+def phase_serve_fleet(torch, tflash, model, paged_outs):
+    """FleetRouter over 2 replicas of serve_paged's EngineConfig on the
+    card: (a) the 8 requests with prefix affinity, (b) 4 streaming
+    requests' home killed, the prompts resubmitted to the survivor."""
+    from distributed_pytorch_tpu_torch.serve import (EngineConfig,
+                                                     FleetConfig,
+                                                     FleetRouter,
+                                                     ReplicaFailed,
+                                                     SamplingParams,
+                                                     aggregate)
+    prompts, _ = paged_traffic()
+    sp = SamplingParams(max_new_tokens=MAX_NEW)
+    n_layers = FLAGSHIP["n_layers"]
+    bad, rec = [], {}
+
+    def admits(fleet):
+        return sum(sum(r.engine.stats()["prefill_admits"].values())
+                   for r in fleet._replicas.values())
+
+    fleet = FleetRouter(model, FleetConfig(n_replicas=2, engine=EngineConfig(
+        n_slots=4, max_len=2048, paged=True, page_len=PAGE_LEN,
+        n_pages=N_PAGES)))
+    home = fleet.home_of(prompts[0])
+    tflash.reset_launch_counts()
+    t0 = time.perf_counter()
+    with fleet:
+        hs = [fleet.submit(p, sp) for p in prompts]
+        outs = [h.result(timeout=900) for h in hs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = fleet.stats()
+        launches_a, admits_a = tflash.LAUNCHES["flash_attention_fwd"], \
+            admits(fleet)
+        same = [bool(np.array_equal(a, b)) for a, b in zip(outs, paged_outs)]
+        agg = aggregate([h.metrics for h in hs], wall_s=wall)
+        rec["routing"] = dict(
+            home=home, replicas=[h.replica for h in hs],
+            affinity_hits=st["affinity_hits"], spills=st["spills"],
+            streams_equal_serve_paged=same,
+            diverged=divergence(torch, model, prompts, outs, paged_outs),
+            prefix_hit_pages=[h.metrics["prefix_hit_pages"] for h in hs],
+            flash_launches=launches_a, prefill_admits=admits_a,
+            **{k: agg[k] for k in ("ttft_ms_p50", "ttft_ms_p99",
+                                   "tpot_ms_p50", "tpot_ms_p99",
+                                   "tokens_per_sec")}, wall_s=wall)
+        if not all(same):
+            bad.append(f"routing: streams differ from serve_paged's {same}")
+        if launches_a != n_layers * admits_a or admits_a != len(prompts):
+            bad.append(f"routing: {launches_a} flash launches for "
+                       f"{admits_a} admissions")
+
+        # (b) kill the home of four streaming requests
+        tflash.reset_launch_counts()
+        before = admits(fleet)
+        victims = [fleet.submit(p, sp) for p in prompts[KILL_PROMPTS]]
+        homes = {h.replica for h in victims}
+        deadline = time.monotonic() + 300
+        while not all(h.tokens for h in victims):
+            if time.monotonic() > deadline:
+                fail("serve_fleet: the four requests never all streamed")
+            time.sleep(0.005)
+        killed = victims[0].replica
+        fleet.kill_replica(killed)
+        errors = []
+        for h in victims:
+            try:
+                h.result(timeout=900)
+                errors.append("no error")
+            except ReplicaFailed as e:
+                errors.append(dict(replica=e.replica,
+                                   request_id=e.request_id,
+                                   streamed=len(h.tokens)))
+        again = [fleet.submit(p, sp) for p in prompts[KILL_PROMPTS]]
+        outs_b = [h.result(timeout=900) for h in again]
+        torch.cuda.synchronize()
+        launches_b, admits_b = tflash.LAUNCHES["flash_attention_fwd"], \
+            admits(fleet) - before
+        same_b = [bool(np.array_equal(a, b))
+                  for a, b in zip(outs_b, paged_outs[KILL_PROMPTS])]
+        rec["kill"] = dict(
+            homes=sorted(homes), killed=killed, errors=errors,
+            rehomed=[h.replica for h in again], streams_equal=same_b,
+            prefix_hit_pages=[h.metrics["prefix_hit_pages"] for h in again],
+            diverged=divergence(torch, model, prompts[KILL_PROMPTS], outs_b,
+                                paged_outs[KILL_PROMPTS]),
+            flash_launches=launches_b, prefill_admits=admits_b,
+            live=fleet.stats()["live"])
+        if homes != {killed} or any(
+                not (isinstance(e, dict) and e["replica"] == killed)
+                for e in errors):
+            bad.append(f"kill: homes {homes}, errors {errors}")
+        if any(h.replica == killed for h in again) or not all(same_b):
+            bad.append(f"kill: re-homed to {[h.replica for h in again]}, "
+                       f"streams equal {same_b}")
+        if launches_b != n_layers * admits_b:
+            bad.append(f"kill: {launches_b} flash launches for {admits_b} "
+                       "admissions")
+        # printed, not gated: prompt 0, cold in serve_paged, admitted
+        # warm on the survivor (why the kill case leaves it out)
+        h0 = fleet.submit(prompts[0], sp)
+        out0 = h0.result(timeout=900)
+        rec["warm_prompt0"] = dict(
+            prefix_hit_pages=h0.metrics["prefix_hit_pages"],
+            equal=bool(np.array_equal(out0, paged_outs[0])),
+            diverged=divergence(torch, model, prompts[:1], [out0],
+                                paged_outs[:1]))
+    del fleet
+    torch.cuda.empty_cache()
+    emit(phase="serve_fleet", card=torch.cuda.get_device_name(0),
+         replicas=2, page_len=PAGE_LEN, n_pages=N_PAGES, **rec)
+    if bad:
+        fail("serve_fleet: " + "; ".join(bad))
+    return dict(routing=launches_a, kill=launches_b)
+
+
+def phase_serve_lm_example():
+    """The port's examples/serve_lm.py --disagg on the card at its default
+    width, in a subprocess with a time limit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        # ``-m`` puts the working directory, the checkout, on sys.path
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "distributed_pytorch_tpu_torch.examples.serve_lm", "--disagg"],
+            cwd=root, capture_output=True, text=True,
+            timeout=SERVE_LM_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"serve_lm_example: no exit within {SERVE_LM_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    done = [ln for ln in proc.stdout.splitlines() if " done: " in ln]
+    emit(phase="serve_lm_example", rc=proc.returncode, wall_s=wall,
+         request_lines=done,
+         split=[ln for ln in proc.stdout.splitlines()
+                if ln.startswith("split:")])
+    if proc.returncode != 0 or len(done) != 6 or not all(
+            "handoff B" in ln and "prefill" in ln and "decode" in ln
+            for ln in done):
+        fail(f"serve_lm_example: rc {proc.returncode}\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2235,11 +2744,17 @@ def main() -> int:
     phase_breakdown(torch, model, pool, timing["ms"])
     del pool
     torch.cuda.empty_cache()
-    paged_outs = phase_serve_paged(torch, model)
+    paged_outs, paged_slo = phase_serve_paged(torch, model)
     # the paged pool quantized, speculative decoding, int8 weights
     kvq_launches = phase_serve_kvq(torch, tflash, model, paged_outs)
     spec_launches = phase_serve_spec(torch, tflash, port, model)
     int8_launches = phase_serve_int8(torch, tflash, model)
+    # disaggregated prefill/decode and the multi-replica fleet, then the
+    # serving example's entry point
+    disagg_launches = phase_serve_disagg(torch, tflash, model, paged_outs,
+                                         paged_slo)
+    fleet_launches = phase_serve_fleet(torch, tflash, model, paged_outs)
+    phase_serve_lm_example()
     del model
     torch.cuda.empty_cache()
 
@@ -2287,7 +2802,9 @@ def main() -> int:
         train_tflops_per_s=bwd_timing["fwd_tflops_per_s"],
         train_library_ratio=bwd_timing["fwd_ms"] / bwd_timing["sdpa_fwd_ms"],
         serve_kvq_launches=kvq_launches, serve_spec_launches=spec_launches,
-        serve_int8_launches=int8_launches)}
+        serve_int8_launches=int8_launches,
+        serve_disagg_launches=disagg_launches,
+        serve_fleet_launches=fleet_launches)}
     # the plain version and SDPA compute dQ, dK and dV in one call: their
     # times stand beside both kernels together (both_ms), not one alone
     for name, kern in (("flash_attention_bwd_dkv", "dkv"),

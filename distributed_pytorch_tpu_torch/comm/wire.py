@@ -17,16 +17,25 @@ implementation of the grid shares.
 
 **Nibbles**: the 4-bit form packs two two's-complement nibbles per byte,
 low nibble first (:func:`pack_nibbles`).
+
+**Byte accounting**: a quantized copy of ``n`` values is its payload
+(:func:`payload_bytes`) plus one f32 scale per block
+(:func:`quant_wire_bytes`); the disaggregated KV-page handoff frames
+every page tensor on its own (:func:`handoff_page_wire_bytes`), which is
+what ``serve/disagg/`` books as sent.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 #: Elements per f32 scale.
 QUANT_BLOCK = 1024
+
+#: Bytes of one block's scale (one f32).
+SCALE_BYTES = 4
 
 #: Widths the codec speaks (bits per element).
 WIRE_WIDTHS = (8, 4)
@@ -43,6 +52,32 @@ def quant_levels(bits: int) -> int:
 
 def num_blocks(n: int, block: int = QUANT_BLOCK) -> int:
     return (n + block - 1) // block
+
+
+def payload_bytes(elems: int, bits: int = 8) -> int:
+    """Payload bytes of ``elems`` quantized values, scales excluded: one
+    byte each at 8 bits, two packed nibbles per byte at 4 (an odd tail
+    pads a zero nibble)."""
+    quant_levels(bits)
+    return elems if bits == 8 else (elems + 1) // 2
+
+
+def quant_wire_bytes(n: int, block: int = QUANT_BLOCK,
+                     bits: int = 8) -> int:
+    """Bytes of one quantized copy of an ``n``-value payload."""
+    return payload_bytes(n, bits) + SCALE_BYTES * num_blocks(n, block)
+
+
+def handoff_page_wire_bytes(page_elems: int, n_tensors: int,
+                            block: int = QUANT_BLOCK,
+                            bits: Optional[int] = 8) -> int:
+    """Bytes of a KV-page handoff's page section: ``n_tensors`` page
+    tensors of ``page_elems`` f32 values, each framed on its own (its
+    scales are local to it). ``bits=None`` is the exact f32 wire, 4
+    bytes per value and no scales."""
+    if bits is None:
+        return n_tensors * page_elems * 4
+    return n_tensors * quant_wire_bytes(page_elems, block, bits)
 
 
 def _block_codec(x: np.ndarray, block: int = QUANT_BLOCK,

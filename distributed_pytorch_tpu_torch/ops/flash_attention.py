@@ -28,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import logging
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -60,14 +61,22 @@ DESIGNS = {
 }
 
 #: Launches of each kernel wrapper of this module; a wrapper adds one
-#: where it launches its kernel and nowhere else.
+#: where it launches its kernel and nowhere else (under a lock: engine
+#: threads, a fleet's replicas, may launch at once).
 LAUNCHES = {"flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0,
             "flash_attention_bwd_dq": 0}
+_launch_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def _kv_head_group(h: int, h_kv: int) -> int:
@@ -279,7 +288,7 @@ def flash_attention_fwd_cuda(q, k, v, *, causal: bool = False,
     if rc != 0:
         raise RuntimeError(f"flash attention forward launch failed with "
                            f"{_error(rc)}")
-    LAUNCHES["flash_attention_fwd"] += 1
+    _count_launch("flash_attention_fwd")
     return o, lse
 
 
@@ -423,7 +432,7 @@ class FlashBwdLaunch:
         if rc != 0:
             raise RuntimeError(f"flash attention backward launch {name} "
                                f"failed with {_error(rc)}")
-        LAUNCHES[counter] += 1
+        _count_launch(counter)
 
     def launch_dkv(self) -> None:
         self._launch("dpx_flash_attention_bwd_dkv", (self.dk, self.dv),

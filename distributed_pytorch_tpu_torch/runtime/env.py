@@ -130,6 +130,32 @@ register("DPX_SERVE_TENANT_MAX_INFLIGHT", "int", 0,
          "typed AdmissionRejected(reason=\"tenant_quota\") with tenant "
          "attribution instead of queueing.")
 
+# -- serving: the disaggregated split (serve/disagg/) and the fleet
+# (serve/fleet/)
+register("DPX_SERVE_DISAGG", "bool", False,
+         "Serve through the disaggregated prefill/decode split "
+         "(serve/disagg/) where the front door supports it "
+         "(examples/serve_lm.py takes it as the --disagg default).")
+register("DPX_HANDOFF_WIDTH", "str", "f32",
+         "Wire width of the disaggregated KV-page handoff frame: `f32` "
+         "(exact), `q8` (block-int8 with per-page scales, ~4x fewer "
+         "handoff bytes) or `q4` (nibble-packed, ~7.9x; "
+         "serve/disagg/frames.py).")
+register("DPX_HANDOFF_TIMEOUT_MS", "int", 30_000,
+         "Deadline for a sent handoff frame to be adopted by the decode "
+         "engine; past it the request fails as a typed `HandoffTimeout` "
+         "instead of waiting on a wedged prefill engine or transport "
+         "(0 disables).")
+register("DPX_FLEET_REPLICAS", "int", 2,
+         "Default replica count of the multi-replica serving fleet "
+         "(serve/fleet/ FleetRouter; FleetConfig(n_replicas=) "
+         "overrides).")
+register("DPX_FLEET_SPILL_QUEUE", "int", 4,
+         "Home-replica queue depth at which the fleet router spills a "
+         "request to the least-loaded replica instead of queueing behind "
+         "known back-pressure (a `queue_full` / `no_free_pages` "
+         "rejection spills regardless).")
+
 register("DPX_MP_POLICY", "str", "off",
          "Default mixed-precision policy of `parallel.make_train_step"
          "(mixed_precision=None)`: `off` (the parameters' own dtype "

@@ -7,6 +7,14 @@ emission waits for the observability slice):
 - **TPOT**: mean inter-token gap after the first token,
   ``(last_token_t - first_token_t) / (n_tokens - 1)``; None for
   1-token outputs.
+
+Disaggregated serving (``serve/disagg/``) splits TTFT along the handoff:
+``queue_ms`` (submit -> prefill admission) + ``prefill_ms`` (admission
+-> frame sent) + ``handoff_ms`` (sent -> taken off the transport by the
+decode engine) + ``decode_ms`` (taken off -> first token sampled), with
+the frame's ``handoff_bytes``. Every token, the first too, comes from
+the decode engine, so TPOT is decode-engine time only. The spans are
+absent for the monolithic engine.
 """
 
 from __future__ import annotations
@@ -24,21 +32,34 @@ def request_record(req: Request, outcome: str) -> Dict:
         ttft_ms = (req.first_token_t - req.submit_t) * 1e3
         if n > 1 and req.last_token_t is not None:
             tpot_ms = (req.last_token_t - req.first_token_t) * 1e3 / (n - 1)
-    return {"request_id": req.request_id, "outcome": outcome,
-            "prompt_len": int(len(req.prompt)), "n_tokens": n,
-            "ttft_ms": ttft_ms, "tpot_ms": tpot_ms,
-            "queue_ms": ((req.admit_t - req.submit_t) * 1e3
-                         if req.admit_t is not None else None),
-            "admit_iteration": req.admit_iteration,
-            "retire_iteration": req.retire_iteration,
-            # paged KV prefix sharing (0/0 when unpaged or cold)
-            "prefix_hit_pages": req.prefix_hit_pages,
-            "prefill_tokens_saved": req.prefill_tokens_saved,
-            "tenant": req.tenant,
-            # speculative decoding (0/0 when the request did not
-            # speculate)
-            "spec_proposed": req.spec_proposed,
-            "spec_accepted": req.spec_accepted}
+    rec = {"request_id": req.request_id, "outcome": outcome,
+           "prompt_len": int(len(req.prompt)), "n_tokens": n,
+           "ttft_ms": ttft_ms, "tpot_ms": tpot_ms,
+           "queue_ms": ((req.admit_t - req.submit_t) * 1e3
+                        if req.admit_t is not None else None),
+           "admit_iteration": req.admit_iteration,
+           "retire_iteration": req.retire_iteration,
+           # paged KV prefix sharing (0/0 when unpaged or cold)
+           "prefix_hit_pages": req.prefix_hit_pages,
+           "prefill_tokens_saved": req.prefill_tokens_saved,
+           "tenant": req.tenant,
+           # speculative decoding (0/0 when the request did not
+           # speculate)
+           "spec_proposed": req.spec_proposed,
+           "spec_accepted": req.spec_accepted}
+    if req.handoff_send_t is not None:
+        # the disagg TTFT decomposition (None: the request failed
+        # before reaching that stage)
+        rec["prefill_ms"] = ((req.handoff_send_t - req.admit_t) * 1e3
+                             if req.admit_t is not None else None)
+        rec["handoff_ms"] = ((req.handoff_recv_t - req.handoff_send_t)
+                             * 1e3 if req.handoff_recv_t is not None
+                             else None)
+        rec["decode_ms"] = ((req.first_token_t - req.handoff_recv_t)
+                            * 1e3 if req.handoff_recv_t is not None
+                            and req.first_token_t is not None else None)
+        rec["handoff_bytes"] = req.handoff_bytes
+    return rec
 
 
 def percentile(xs: List[float], q: float) -> Optional[float]:
@@ -85,6 +106,18 @@ def aggregate(records: List[Dict], wall_s: Optional[float] = None) -> Dict:
         out["spec_proposed"] = proposed
         out["spec_accepted"] = accepted
         out["spec_acceptance_rate"] = round(accepted / proposed, 4)
+    hand = [r["handoff_ms"] for r in ok
+            if r.get("handoff_ms") is not None]
+    if hand:
+        # disaggregated serving: the handoff leg of TTFT and the frame
+        # bytes moved prefill -> decode
+        out["handoff_ms_p50"] = percentile(hand, 50)
+        out["handoff_ms_p99"] = percentile(hand, 99)
+        out["prefill_ms_p50"] = percentile(
+            [r["prefill_ms"] for r in ok
+             if r.get("prefill_ms") is not None], 50)
+        out["handoff_bytes"] = sum(r.get("handoff_bytes") or 0
+                                   for r in ok)
     if wall_s:
         out["wall_s"] = round(wall_s, 3)
         out["tokens_per_sec"] = round(toks / wall_s, 2)

@@ -27,10 +27,16 @@ completes. Speculative decoding scores candidates with
 accepted prefix with :meth:`PagedSlotPool.spec_commit`, after
 :meth:`PagedSlotPool.ensure_spec_capacity` found its pages.
 
+The disaggregated KV-page handoff (``serve/disagg/``) reads a slot's
+pages out with :meth:`PagedSlotPool.extract` (f32 host arrays) or
+:meth:`PagedSlotPool.extract_quantized` (a quantized pool's resident
+codes and scales) and installs them in another pool with
+:meth:`PagedSlotPool.adopt` / :meth:`PagedSlotPool.adopt_quantized`,
+through the same allocation path admissions use.
+
 The page tables and lengths live on the host (numpy), so the decode
 knows its page count without a device sync; the pool tensors are
-allocated once and written in place. Not ported yet: the KV handoff
-(``extract*``, ``adopt*``: ROADMAP.md Queue A item 4.4).
+allocated once and written in place.
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ from ...models.generate import (decode_step_slots_paged,
 from ..types import AdmissionRejected
 from .pool import PagePool
 from .prefix import PrefixIndex
-from .quant import num_page_blocks, resolve_kv_bits
+from .quant import (dequantize_pages_np, num_page_blocks, pack_pages_np,
+                    quantize_pages_np, resolve_kv_bits, unpack_pages_np)
 
 
 class PagedSlotPool:
@@ -70,6 +77,7 @@ class PagedSlotPool:
         self.pages_per_slot = -(-max_len // page_len)   # ceil
         dh = model.dim // model.n_heads
         h_kv, dev, n_layers = model.n_kv_heads, model.device, model.n_layers
+        self.page_shape = (h_kv, page_len, dh)
         self.k_scales = self.v_scales = self.k_tail = self.v_tail = None
         if self.quant_bits is None:
             shape, store = (n_pages, h_kv, page_len, dh), model.dtype
@@ -265,6 +273,200 @@ class PagedSlotPool:
                                 self.lengths, sk, sv, commit,
                                 page_len=self.page_len, **self._quant_kw())
         self.lengths += np.asarray(commit, np.int64)
+
+    # -- the disaggregated KV-page handoff ---------------------------------
+
+    def _gather(self, tensors, ids: torch.Tensor, dtype=None) -> np.ndarray:
+        """Pages ``ids`` of every layer's tensor, gathered on the device
+        (cast to ``dtype`` there, when given) and copied to the host in
+        one transfer: (n_layers, P, ...)."""
+        x = torch.stack([t[ids] for t in tensors])
+        return (x if dtype is None else x.to(dtype)).cpu().numpy()
+
+    def _handoff_rows(self, slot: int):
+        length = int(self.lengths[slot])
+        row = self.owned[slot]
+        valid_last = length - (len(row) - 1) * self.page_len
+        ids = torch.as_tensor(np.asarray(row, np.int64),
+                              device=self.model.device)
+        return length, valid_last, ids
+
+    def _resident_codes(self, slot: int):
+        """A quantized pool's handoff material for ``slot``: ``(length,
+        codes, scales, tails)``; codes[j] / scales[j] for K (j = 0) and
+        V (j = 1) as (n_layers, P, Hkv, L, Dh) int8 unpacked and
+        (n_layers, P, nb) f32; tails (2, n_layers, Hkv, L, Dh) f32, the
+        slot's exact partial page zeroed past the length, or None when
+        the length is page-aligned."""
+        length, valid_last, ids = self._handoff_rows(slot)
+        codes, scales = [], []
+        for pages, sc in ((self.k_pages, self.k_scales),
+                          (self.v_pages, self.v_scales)):
+            q = self._gather(pages, ids)
+            codes.append(unpack_pages_np(q) if self.quant_bits == 4
+                         else q.astype(np.int8, copy=False))
+            scales.append(self._gather(sc, ids))
+        tails = None
+        if valid_last < self.page_len:
+            tails = torch.stack([torch.stack([x[slot] for x in self.k_tail]),
+                                 torch.stack([x[slot] for x in self.v_tail])]
+                                ).cpu().numpy()
+            tails[:, :, :, valid_last:, :] = 0.0
+        return length, codes, scales, tails
+
+    def extract(self, slot: int) -> Tuple[int, List[np.ndarray],
+                                          List[np.ndarray]]:
+        """Host copies of ``slot``'s pages in table order, the prefill
+        side of the KV-page handoff: ``(length, ks, vs)``, ks/vs per
+        layer ``(P, Hkv, page_len, Dh)`` f32 numpy arrays. Only the
+        slot's pages cross to the host. Positions past ``length`` in the
+        last page are zeroed (a reused page may hold a previous
+        occupant's K/V there, which would skew a quantized frame's
+        scales).
+
+        In a quantized pool the full pages are dequantized on the host
+        and the partial last page comes from the slot's exact f32 tail
+        (its pool row was never written), so it carries no quantization
+        error."""
+        if self.quant_bits is not None:
+            length, codes, scales, tails = self._resident_codes(slot)
+            out = []
+            for j in range(2):
+                per_layer = [dequantize_pages_np(q, sc)
+                             for q, sc in zip(codes[j], scales[j])]
+                if tails is not None:
+                    for x, t in zip(per_layer, tails[j]):
+                        x[-1] = t
+                out.append(per_layer)
+            return length, out[0], out[1]
+        length, valid_last, ids = self._handoff_rows(slot)
+        ks = self._gather(self.k_pages, ids, torch.float32)
+        vs = self._gather(self.v_pages, ids, torch.float32)
+        if valid_last < self.page_len:
+            ks[:, -1, :, valid_last:, :] = 0.0
+            vs[:, -1, :, valid_last:, :] = 0.0
+        return length, list(ks), list(vs)
+
+    def extract_quantized(self, slot: int):
+        """A quantized pool's handoff without a dequantize-requantize
+        round trip: ``(length, kqs, vqs)``, each per-layer entry ``(q,
+        scales)`` with ``q`` ``(P, Hkv, page_len, Dh)`` int8 unpacked and
+        ``scales`` ``(P, nb)`` f32: the pool's resident codes and scales
+        for full pages; the partial last page quantized once here from
+        the exact zero-padded tail."""
+        if self.quant_bits is None:
+            raise ValueError("extract_quantized requires a quantized "
+                             "pool (kv_dtype='q8'/'q4')")
+        length, codes, scales, tails = self._resident_codes(slot)
+        if tails is not None:
+            for j in range(2):
+                for i in range(self.model.n_layers):
+                    tq, ts = quantize_pages_np(tails[j, i][None],
+                                               self.quant_bits)
+                    codes[j][i, -1], scales[j][i, -1] = tq[0], ts[0]
+        return length, [(q, sc) for q, sc in zip(codes[0], scales[0])], \
+            [(q, sc) for q, sc in zip(codes[1], scales[1])]
+
+    def _adopt_rows(self, slot: int, n: int) -> torch.Tensor:
+        pids = self._alloc(n)          # all-or-nothing; may raise
+        self.tables[slot, :n] = pids
+        self.tables[slot, n:] = 0
+        self.owned[slot] = pids
+        return torch.as_tensor(np.asarray(pids, np.int64),
+                               device=self.model.device)
+
+    def _put(self, tensors, ids: torch.Tensor, host: np.ndarray) -> None:
+        """Write ``host`` (n_layers, P, ...) into pages ``ids`` of every
+        layer's tensor: one host-to-device copy on the current stream."""
+        dev = torch.from_numpy(np.ascontiguousarray(host)).to(
+            self.model.device)
+        for t, x in zip(tensors, dev):
+            t[ids] = x.to(t.dtype)
+
+    def _put_tails(self, slot: int, tails: np.ndarray) -> None:
+        dev = torch.from_numpy(np.ascontiguousarray(tails)).to(
+            self.model.device)
+        for j, bufs in enumerate((self.k_tail, self.v_tail)):
+            for t, x in zip(bufs, dev[j]):
+                t[slot] = x
+
+    def adopt(self, slot: int, length: int, ks: List[np.ndarray],
+              vs: List[np.ndarray]) -> int:
+        """Install a handed-off request's pages (``extract``'s f32
+        arrays) into ``slot``, the decode side of the handoff. Pages come
+        from the admissions' allocation path (free list, then LRU
+        eviction), so :class:`~..types.PagePoolExhausted` is raised with
+        nothing changed when the pool cannot supply them. Returns the
+        page count.
+
+        In a quantized pool the full pages are quantized here (their one
+        rounding: extract shipped exact values) and the partial last
+        page goes into the slot's f32 tail; on a page-aligned length the
+        tail is zeroed, so a previous occupant's tail never shows
+        through."""
+        n = int(ks[0].shape[0])
+        ids = self._adopt_rows(slot, n)
+        if self.quant_bits is None:
+            self._put(self.k_pages, ids, np.stack(ks))
+            self._put(self.v_pages, ids, np.stack(vs))
+            self.lengths[slot] = length
+            return n
+        L = self.page_len
+        nfull = length // L
+        valid_last = length - (n - 1) * L
+        tails = np.zeros((2, self.model.n_layers) + self.page_shape,
+                         np.float32)
+        for j, (src, pages, scales) in enumerate((
+                (ks, self.k_pages, self.k_scales),
+                (vs, self.v_pages, self.v_scales))):
+            q = np.zeros((self.model.n_layers, n) + self.page_shape, np.int8)
+            sc = np.ones((self.model.n_layers, n, scales[0].shape[1]),
+                         np.float32)
+            for i in range(self.model.n_layers):
+                if nfull:
+                    q[i, :nfull], sc[i, :nfull] = quantize_pages_np(
+                        src[i][:nfull], self.quant_bits)
+                if valid_last < L:
+                    tails[j, i] = src[i][-1]
+                    tails[j, i, :, valid_last:, :] = 0.0
+            self._put(pages, ids,
+                      pack_pages_np(q) if self.quant_bits == 4 else q)
+            self._put(scales, ids, sc)
+        self._put_tails(slot, tails)
+        self.lengths[slot] = length
+        return n
+
+    def adopt_quantized(self, slot: int, length: int, kqs, vqs) -> int:
+        """Inverse of :meth:`extract_quantized`: install already-quantized
+        ``(q, scales)`` pages as they are, with no rounding; the partial
+        last page is also dequantized (exactly, given its codes and
+        scales) into the slot's tail, which the decode reads and the
+        page's completion quantizes."""
+        if self.quant_bits is None:
+            raise ValueError("adopt_quantized requires a quantized "
+                             "pool (kv_dtype='q8'/'q4')")
+        n = int(kqs[0][0].shape[0])
+        ids = self._adopt_rows(slot, n)
+        L = self.page_len
+        valid_last = length - (n - 1) * L
+        tails = np.zeros((2, self.model.n_layers) + self.page_shape,
+                         np.float32)
+        for j, (src, pages, scales) in enumerate((
+                (kqs, self.k_pages, self.k_scales),
+                (vqs, self.v_pages, self.v_scales))):
+            q = np.stack([np.ascontiguousarray(x[0], np.int8) for x in src])
+            sc = np.stack([np.asarray(x[1], np.float32) for x in src])
+            if valid_last < L:
+                for i in range(self.model.n_layers):
+                    tails[j, i] = dequantize_pages_np(q[i, -1:],
+                                                      sc[i, -1:])[0]
+                tails[j, :, :, valid_last:, :] = 0.0
+            self._put(pages, ids,
+                      pack_pages_np(q) if self.quant_bits == 4 else q)
+            self._put(scales, ids, sc)
+        self._put_tails(slot, tails)
+        self.lengths[slot] = length
+        return n
 
     def release(self, slot: int) -> None:
         """Drop the slot's references (retirement, failure or drain):

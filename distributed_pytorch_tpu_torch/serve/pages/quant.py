@@ -52,18 +52,51 @@ def num_page_blocks(h_kv: int, page_len: int, dh: int) -> int:
     return wire.num_blocks(page_elems(h_kv, page_len, dh))
 
 
+def _padded_blocks(pages: np.ndarray) -> Tuple[np.ndarray, int]:
+    """``(P, ...)`` pages -> ``(P, nb * QUANT_BLOCK)`` with each page's
+    ragged last block zero-padded, and the page's element count."""
+    n_pages = pages.shape[0]
+    flat = pages.reshape(n_pages, -1)
+    elems = flat.shape[1]
+    pad = wire.num_blocks(elems) * wire.QUANT_BLOCK - elems
+    if pad:
+        flat = np.pad(flat, ((0, 0), (0, pad)))
+    return flat, elems
+
+
+def quantize_pages_np(pages: np.ndarray, bits: int
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """f32 pages ``(P, Hkv, L, Dh)`` -> ``(q int8 unpacked, same shape;
+    scales (P, nb) f32)`` on the wire's block grid, each page on its own
+    (its ragged last block zero-padded, which changes neither its amax
+    nor the all-integer test)."""
+    pages = np.ascontiguousarray(pages, np.float32)
+    flat, elems = _padded_blocks(pages)
+    q, scales = wire.quantize_blocks(flat.ravel(), bits=bits)
+    q = q.reshape(flat.shape)[:, :elems].reshape(pages.shape)
+    return q, scales.reshape(pages.shape[0], -1)
+
+
+def dequantize_pages_np(q: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """Unpacked int8 pages + per-page-per-block scales -> f32 pages."""
+    flat, elems = _padded_blocks(np.ascontiguousarray(q, np.int8))
+    out = wire.dequantize_blocks(flat.ravel(), np.ascontiguousarray(
+        scales, np.float32).ravel())
+    return out.reshape(flat.shape)[:, :elems].reshape(q.shape)
+
+
 def quantize_page_np(page: np.ndarray, bits: int
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """One f32 page ``(Hkv, L, Dh)`` -> ``(q int8 unpacked, same shape;
     scales (nb,) f32)`` on the wire's block grid."""
-    q, scales = wire.quantize_blocks(
-        np.ascontiguousarray(page, np.float32).ravel(), bits=bits)
-    return q.reshape(page.shape), scales
+    q, scales = quantize_pages_np(np.asarray(page)[None], bits)
+    return q[0], scales[0]
 
 
 def dequantize_page_np(q: np.ndarray, scales: np.ndarray) -> np.ndarray:
     """Unpacked int8 page + per-block scales -> f32 page."""
-    return wire.dequantize_blocks(q.ravel(), scales).reshape(q.shape)
+    return dequantize_pages_np(np.asarray(q)[None],
+                               np.asarray(scales)[None])[0]
 
 
 def pack_pages_np(q: np.ndarray) -> np.ndarray:

@@ -4,8 +4,9 @@ request lifecycle and the typed failure vocabulary.
 The port's own copy of ``distributed_pytorch_tpu/serve/types.py`` (the
 port imports nothing of the JAX package). Every failure is a typed
 exception carrying the request id and the engine iteration, so callers
-never parse message strings. Handoff errors wait for the slice that
-brings the KV handoff.
+never parse message strings. The handoff errors (``HandoffError`` and
+its three kinds) name the side of the disaggregated split they blame
+(``serve/disagg/``).
 """
 
 from __future__ import annotations
@@ -73,6 +74,47 @@ class EngineStopped(ServeError):
     """The engine shut down while the request was still in flight."""
 
 
+class HandoffError(ServeError):
+    """A KV-page handoff of disaggregated serving (``serve/disagg/``)
+    failed. Base of the handoff vocabulary: carries the request, the
+    iteration and ``engine``, the side of the split it blames
+    (``"prefill"``, ``"decode"`` or ``"transport"``). A dead prefill
+    engine fails only its in-flight requests, typed, while
+    decode-resident streams go on producing their tokens."""
+
+    def __init__(self, msg: str, *, engine: str = "transport", **kw):
+        super().__init__(msg, **kw)
+        self.engine = engine
+
+
+class PrefillEngineDied(HandoffError):
+    """The prefill engine died (crash, severed transport) with this
+    request on its side of the handoff: queued for prefill,
+    mid-prefill, or sent but never received. Only those requests fail;
+    every decode-resident stream continues."""
+
+
+class HandoffTimeout(HandoffError):
+    """A sent handoff frame did not reach the decode pool within
+    ``DPX_HANDOFF_TIMEOUT_MS``: the transport or the prefill side is
+    wedged but nothing closed. ``deadline_ms`` is the deadline."""
+
+    def __init__(self, msg: str, *, deadline_ms: float = 0.0, **kw):
+        super().__init__(msg, **kw)
+        self.deadline_ms = deadline_ms
+
+
+class HandoffCorrupt(HandoffError):
+    """A handoff frame failed its integrity check (magic, version,
+    geometry or CRC32C). ``page`` names the first page tensor whose
+    CRC32C mismatched (-1: the header or the logits section): corrupt
+    KV never reaches the decode pool."""
+
+    def __init__(self, msg: str, *, page: int = -1, **kw):
+        super().__init__(msg, **kw)
+        self.page = page
+
+
 class SpecDecodeError(ServeError):
     """A speculative-decoding step (``serve/spec/``) failed for this
     request: the draft's proposal loop, the batched verify or the commit
@@ -138,6 +180,17 @@ class Request:
     retire_iteration: Optional[int] = None
     first_token_t: Optional[float] = None
     last_token_t: Optional[float] = None
+    # disaggregated serving (serve/disagg/): the frame leaves the prefill
+    # engine at handoff_send_t and is taken off the transport by the
+    # decode engine at handoff_recv_t; with submit_t, admit_t and
+    # first_token_t they split TTFT into queue, prefill, handoff and
+    # decode spans (serve/metrics.py). None in the monolithic engine.
+    handoff_send_t: Optional[float] = None
+    handoff_recv_t: Optional[float] = None
+    handoff_bytes: Optional[int] = None
+    #: where the disagg router finds it for failure attribution:
+    #: "prefill_queue" | "prefill" | "handoff" | "decode"
+    stage: Optional[str] = None
 
     @property
     def done(self) -> bool:

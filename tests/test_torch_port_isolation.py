@@ -65,6 +65,9 @@ def test_importing_the_port_loads_no_jax():
             "distributed_pytorch_tpu_torch.ops.decode_attention, "
             "distributed_pytorch_tpu_torch.examples.train_resnet, "
             "distributed_pytorch_tpu_torch.examples.train_transformer_lm, "
+            "distributed_pytorch_tpu_torch.examples.serve_lm, "
+            "distributed_pytorch_tpu_torch.serve.disagg, "
+            "distributed_pytorch_tpu_torch.serve.fleet, "
             "distributed_pytorch_tpu_torch.utils.checkpoint, "
             "distributed_pytorch_tpu_torch.utils.profiler, "
             "distributed_pytorch_tpu_torch.serve.pages\n"

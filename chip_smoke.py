@@ -190,13 +190,36 @@ non-zero at once:
               launches per admission in both;
 26. serve_lm_example — ``examples/serve_lm.py --disagg`` at its default
               width in a subprocess (300 s limit): exit 0 and six
-              request lines with the TTFT decomposition.
+              request lines with the TTFT decomposition;
+27. host_ddp (after ddp_train) — FLAGSHIP through a ``"host"`` group (the
+              native ring of ``native/dpxhost.cpp``) at world 1 on
+              cuda:0, 1 warm-up and 3 timed steps in each arm:
+              grad_reduce mean, quant, q4 and adaptive, the overlapped
+              buckets (4) at quant, and ZeRO-1 (``weight_update=
+              "sharded"``) at mean and at quant. Each moves the whole
+              134,994,432-element f32 gradient bucket to the host and
+              back, the quantized arms through ErrorFeedback's grid.
+              Per arm: step ms beside ``train``'s, host ms per step of
+              device -> host, codec, ring and host -> device, CommStats
+              bytes and calls per op, exposed / overlapped seconds,
+              12/12/12 flash launches per step, finite falling losses,
+              the adaptive chooser's widths; the ZeRO-1 mean arm's
+              parameters must equal the replicated mean arm's bit for
+              bit;
+28. host_ring — ``examples/host_ring.py``: two CPU rank processes over
+              the port's ``HostComm`` on a 134,994,432-element bucket:
+              all-reduce f32, q8, q4 and reduce_scatter_q8 +
+              allgather_q8, wall ms and wire bytes per rank beside
+              ``comm/wire.py``'s formulas, results equal on both ranks
+              (the legs equal to the q8 ring), the q8 / q4 rings at
+              1,048,576 elements equal to ``simulate_quant_ring``, and
+              one ~94 MB f32 handoff frame through ``HostCommTransport``.
 
 Then the ``kernels`` line (each kernel's design, ``wgmma+tma`` or
 ``scalar_fma``, as its bf16 path runs it; the forward at both shapes and
 its launches in ``serve_kvq``, ``serve_spec``, ``serve_int8``,
-``serve_disagg`` and ``serve_fleet``),
-the nvidia-smi line and, last, the result line
+``serve_disagg`` and ``serve_fleet``; every row's launches per step in
+each ``host_ddp`` arm), the nvidia-smi line and, last, the result line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1245,6 +1268,183 @@ def phase_ddp_train(torch, tflash, train_step_ms):
              f"{mp_rec['losses']}")
     if mp_rec["param_dtypes"] != ["torch.float32"]:
         fail(f"ddp_train bf16 policy: masters {mp_rec['param_dtypes']}")
+
+
+# the host door: FLAGSHIP through a "host" group at world 1 on the card,
+# in every gradient-wire arm; then the native ring between two ranks
+HOST_TIMED_STEPS = 3
+# (arm, make_train_step keywords)
+HOST_ARMS = [("mean", dict(grad_reduce="mean")),
+             ("quant", dict(grad_reduce="quant")),
+             ("q4", dict(grad_reduce="q4")),
+             ("adaptive", dict(grad_reduce="adaptive")),
+             ("overlap_quant", dict(grad_reduce="quant", overlap=True,
+                                    comm_buckets=4)),
+             ("sharded_mean", dict(weight_update="sharded")),
+             ("sharded_quant", dict(grad_reduce="quant",
+                                    weight_update="sharded"))]
+HOST_RING_TIMEOUT_S = 600
+HOST_RING_PARITY_N = 1 << 20
+
+
+def host_arm(torch, port, tflash, device, kw, config, tokens, steps):
+    """``steps`` steps (the first a warm-up) of one host-door arm on a
+    fresh seeded model; what the phase prints about it, and the model."""
+    from distributed_pytorch_tpu_torch.optim import adamw
+    from distributed_pytorch_tpu_torch.parallel import make_train_step
+    from distributed_pytorch_tpu_torch.runtime import context
+    comm = context.get_host_comm()
+    model = port.TransformerLM(
+        dtype=torch.bfloat16, device=device,
+        attn_fn=tflash.make_flash_attn_fn(),
+        generator=torch.Generator(device=device).manual_seed(0), **config)
+    opt = adamw(TRAIN_LR)
+    step = make_train_step(lm_loss, opt, **kw)
+    state = (step.init_opt_state(model.parameters())
+             if hasattr(step, "init_opt_state")
+             else opt.init(model.parameters()))
+    tflash.reset_launch_counts()
+    losses = []
+    for i in range(steps):
+        if i == 1:
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            comm.stats.reset()
+            host0 = dict(step.host_times)
+            t0 = time.perf_counter()
+        out = step(model, state, tokens)
+        state = out.opt_state
+        losses.append(out.loss)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    timed = steps - 1
+    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    chooser = getattr(step, "width_chooser", None)
+    stats = comm.stats.summary()
+    rec = dict(
+        step_ms=step_ms,
+        host_ms_per_step={k.replace("_s", "_ms"): (v - host0[k]) / timed
+                          * 1e3 for k, v in step.host_times.items()},
+        comm_bytes_per_step={op: d["bytes"] / timed
+                             for op, d in stats.items()},
+        comm_calls_per_step={op: d["calls"] / timed
+                             for op, d in stats.items()},
+        exposed_s=sum(d["exposed_s"] for d in stats.values()),
+        overlapped_s=sum(d["overlapped_s"] for d in stats.values()),
+        launches_per_step={k: v / steps for k, v in tflash.LAUNCHES.items()},
+        losses=torch.cat(losses).float().tolist(),
+        widths=list(chooser.widths) if chooser is not None else None)
+    return rec, model
+
+
+def phase_host_ddp(torch, port, tflash, device, train_step_ms):
+    """FLAGSHIP trained through a ``"host"`` group (the native ring of
+    ``native/dpxhost.cpp``) at world 1 on ``device``, in every arm of
+    HOST_ARMS: each moves the whole gradient bucket to the host and back,
+    the quantized arms through ErrorFeedback's grid. Returns each arm's
+    flash launches per step."""
+    from distributed_pytorch_tpu_torch.runtime import context, env
+    from distributed_pytorch_tpu_torch.runtime.launcher import find_free_port
+    config, batch, steps = TRAIN, TRAIN_BATCH, 1 + HOST_TIMED_STEPS
+    # rank 0 of a 1-rank host group on the card (no socket at world 1)
+    env.set("DPX_MASTER_PORT", find_free_port())
+    context.init_process_group(0, 1, backend="host")
+    try:
+        tokens = train_tokens(torch, 6, batch, device)
+        arms, launches, ref = {}, {}, None
+        for name, kw in HOST_ARMS:
+            rec, model = host_arm(torch, port, tflash, device, kw, config,
+                                  tokens, steps)
+            n_params = sum(p.numel() for p in model.parameters())
+            if name == "mean":
+                ref = [p.detach().clone() for p in model.parameters()]
+            if name == "sharded_mean":
+                rec["params_equal_replicated_mean"] = all(
+                    torch.equal(a, b.detach())
+                    for a, b in zip(ref, model.parameters()))
+            arms[name] = rec
+            launches[name] = rec["launches_per_step"]
+            del model
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        context.destroy_process_group()
+    emit(phase="host_ddp", card=torch.cuda.get_device_name(0),
+         config=dict(config, batch=batch, seq=TRAIN_SEQ, dtype="bfloat16",
+                     optimizer=f"adamw({TRAIN_LR})"),
+         backend="host", world=1, device=str(device), bucket_elems=n_params,
+         bucket_bytes_f32=4 * n_params, warmup_steps=1,
+         timed_steps=steps - 1, train_step_ms=train_step_ms, arms=arms)
+    want = {k: config["n_layers"] for k in tflash.LAUNCHES}
+    for name, rec in arms.items():
+        if rec["launches_per_step"] != want:
+            fail(f"host_ddp {name}: launches per step "
+                 f"{rec['launches_per_step']}, expected {want}")
+        ls = rec["losses"]
+        if not (np.all(np.isfinite(ls)) and ls[-1] < ls[0]):
+            fail(f"host_ddp {name}: losses {ls} not finite and falling")
+    if not arms["sharded_mean"]["params_equal_replicated_mean"]:
+        fail("host_ddp: sharded mean params differ from the replicated "
+             "mean's")
+    if arms["adaptive"]["widths"] is None or \
+            len(arms["adaptive"]["widths"]) != steps:
+        fail(f"host_ddp adaptive: widths {arms['adaptive']['widths']}")
+    for name in ("quant", "q4", "adaptive", "overlap_quant"):
+        if arms[name]["host_ms_per_step"]["codec_ms"] <= 0:
+            fail(f"host_ddp {name}: no codec time on the host")
+    return launches
+
+
+def phase_host_ring():
+    """examples/host_ring.py: two CPU rank processes over the port's
+    HostComm on one FLAGSHIP-sized bucket; per op wall ms and wire bytes
+    beside comm/wire.py's formulas, results equal on both ranks, the
+    quantized rings at parity_n equal to simulate_quant_ring, and one
+    ~94 MB handoff frame through HostCommTransport."""
+    from distributed_pytorch_tpu_torch.comm import wire
+    from distributed_pytorch_tpu_torch.examples import host_ring
+    from distributed_pytorch_tpu_torch.runtime.multiprocess import \
+        launch_multiprocess
+    n, parity_n = host_ring.FLAGSHIP_PARAMS, HOST_RING_PARITY_N
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        launch_multiprocess(host_ring.main_worker, 2, n, d, parity_n,
+                            device="cpu", backend="host",
+                            timeout_s=HOST_RING_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        recs = [read_json(os.path.join(d, f"rank{r}.json"))
+                for r in range(2)]
+    xs = [host_ring.rank_bucket(r, parity_n, salt=1) for r in range(2)]
+    parity = {f"q{b}": recs[0]["parity"][f"q{b}"] == recs[1]["parity"][
+        f"q{b}"] == host_ring.sha(wire.simulate_quant_ring(xs, bits=b)[0][0])
+        for b in (8, 4)}
+    frame, kv = host_ring.handoff_frame()
+    want_sha = host_ring.sha(np.frombuffer(frame, np.uint8))
+    ops = recs[0]["ops"]
+    checks = {
+        "equal_on_both_ranks": all(
+            ops[k]["sha256"] == recs[1]["ops"][k]["sha256"] for k in ops),
+        "bytes_equal_formulas": all(
+            r["ops"][k]["wire_bytes"] == r["ops"][k]["formula_bytes"]
+            for r in recs for k in ops),
+        "legs_compose_to_the_q8_ring": ops["allreduce_q8"]["sha256"]
+        == ops["reduce_scatter_q8+allgather_q8"]["sha256"],
+        "parity_q8": parity["q8"], "parity_q4": parity["q4"],
+        "handoff_frame": recs[0]["handoff"]["sha256"] == want_sha
+        and recs[1]["handoff"]["booked"] == kv}
+    emit(phase="host_ring", backend="host", world=2, device="cpu",
+         bucket_elems=n, parity_elems=parity_n, wall_s=wall,
+         ops={k: {f"rank{r}_{f}": recs[r]["ops"][k][f] for r in range(2)
+                  for f in ("wall_ms", "wire_bytes")}
+              | {"formula_bytes": v["formula_bytes"]}
+              for k, v in ops.items()},
+         reduce_scatter_q8_ms=[r["reduce_scatter_q8_ms"] for r in recs],
+         allgather_q8_ms=[r["allgather_q8_ms"] for r in recs],
+         handoff=dict(recs[1]["handoff"], recv_ms=recs[0]["handoff"][
+             "recv_ms"]), checks=checks)
+    if not all(checks.values()):
+        fail(f"host_ring: {[k for k, ok in checks.items() if not ok]} "
+             f"failed")
 
 
 RESNET_BATCH = 64
@@ -2774,6 +2974,10 @@ def main() -> int:
     phase_ddp_min(torch)
     phase_ddp_world2_cpu(torch)
     phase_ddp_train(torch, tflash, step_ms)
+    # the host door: FLAGSHIP over the native group in every wire arm,
+    # then the native ring between two rank processes
+    host_launches = phase_host_ddp(torch, port, tflash, device, step_ms)
+    phase_host_ring()
 
     # the ResNet-18 rung (cuDNN; no kernel of the port) and the LM rung's
     # optimizer and loss stack (the three flash kernels)
@@ -2824,6 +3028,8 @@ def main() -> int:
     for name, row in rows.items():
         row["design"] = tflash.DESIGNS[name][torch.bfloat16]
         row["lm_trainer_launches_per_step"] = trainer_per_step[name]
+        row["host_ddp_launches_per_step"] = {
+            arm: per_step[name] for arm, per_step in host_launches.items()}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=launches[name], **row)

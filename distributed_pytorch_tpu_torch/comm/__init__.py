@@ -1,1 +1,4 @@
-"""Collectives of the port (``collectives``) over torch.distributed."""
+"""The comm layer of the port: the helper API's collectives
+(``collectives``) over torch.distributed or the native host group
+(``host_backend``, with the two-level ``hier`` ring and the ``sanitizer``),
+the torch.distributed ``primitives``, and the numpy ``wire`` format."""

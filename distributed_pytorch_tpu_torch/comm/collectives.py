@@ -21,6 +21,14 @@ reference's quirks are kept:
 The op is checked at every world size, world 1 included, so that a
 wrong op raises before a run ever reaches more ranks (the reference
 checks it only at world > 1).
+
+While a native host group is live (``DPX_BACKEND=host``,
+``runtime/context.py``), every collective at world > 1 runs on it
+instead (``comm/host_backend.py``), with the same results. There
+``all_reduce`` and ``sync_params`` honour ``wire=`` (``"quant"``,
+``"q4"``, ``"adaptive"``: the quantized ring). On torch.distributed the
+wire is checked and the bytes stay exact, as on the JAX package's
+single-controller door.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 import torch.distributed as tdist
 
 from ..runtime import context
+from . import host_backend
 
 _OPS = {"sum": tdist.ReduceOp.SUM, "avg": tdist.ReduceOp.SUM,
         "max": tdist.ReduceOp.MAX, "min": tdist.ReduceOp.MIN}
@@ -41,13 +50,19 @@ def _check_op(op: str, valid) -> None:
         raise ValueError(f'"{op}" is an invalid reduce operation!')
 
 
-def all_reduce(tensor: torch.Tensor, op: str = "sum") -> torch.Tensor:
+def all_reduce(tensor: torch.Tensor, op: str = "sum",
+               wire: str = "exact") -> torch.Tensor:
     """Reduce ``tensor`` over the ranks, in place on every rank; returns
-    it (reference ``distributed.py:119-133``)."""
+    it (reference ``distributed.py:119-133``). ``wire``: see the module
+    docstring."""
     _check_op(op, _OPS)
+    host_backend._check_wire(wire)
     world = context.get_world_size()
     if world == 1:
         return tensor
+    comm = context.get_host_comm()
+    if comm is not None:
+        return host_backend.all_reduce(comm, tensor, op, wire=wire)
     tdist.all_reduce(tensor, op=_OPS[op])
     if op == "avg":
         if tensor.is_floating_point() or tensor.is_complex():
@@ -65,6 +80,9 @@ def reduce(tensor: torch.Tensor, op: str = "sum") -> torch.Tensor:
     _check_op(op, ("sum",))
     if context.get_world_size() == 1:
         return tensor
+    comm = context.get_host_comm()
+    if comm is not None:
+        return host_backend.reduce(comm, tensor, op)
     if context.get_rank() == 0:
         tdist.reduce(tensor, dst=0)
     else:
@@ -79,6 +97,9 @@ def gather(data: torch.Tensor) -> List[torch.Tensor]:
     world = context.get_world_size()
     if world == 1:
         return [data]
+    comm = context.get_host_comm()
+    if comm is not None:
+        return host_backend.gather(comm, data)
     out = [torch.zeros_like(data) for _ in range(world)]
     tdist.gather(data, out if context.get_rank() == 0 else None, dst=0)
     return out
@@ -90,6 +111,9 @@ def all_gather(data: torch.Tensor) -> torch.Tensor:
     world = context.get_world_size()
     if world == 1:
         return data.unsqueeze(0)
+    comm = context.get_host_comm()
+    if comm is not None:
+        return host_backend.all_gather(comm, data)
     out = [torch.empty_like(data) for _ in range(world)]
     tdist.all_gather(out, data)
     return torch.stack(out)
@@ -102,14 +126,24 @@ def broadcast(tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
         raise ValueError(f"broadcast src={src} out of range for "
                          f"world={world}")
     if world > 1:
+        comm = context.get_host_comm()
+        if comm is not None:
+            return host_backend.broadcast(comm, tensor, src)
         tdist.broadcast(tensor, src=src)
     return tensor
 
 
-def sync_params(params: Sequence[torch.Tensor]) -> list:
+def sync_params(params: Sequence[torch.Tensor],
+                wire: str = "exact") -> list:
     """Rank 0's values of ``params`` on every rank, in place, without
-    autograd (reference ``distributed.py:163-170``); returns them."""
+    autograd (reference ``distributed.py:163-170``); returns them.
+    ``wire``: see the module docstring (a quantized wire leaves every
+    rank, rank 0 included, with the dequantized float32 values)."""
+    host_backend._check_wire(wire)
     params = list(params)
+    comm = context.get_host_comm()
+    if comm is not None and context.get_world_size() > 1:
+        return host_backend.sync_params(comm, params, wire=wire)
     if context.get_world_size() > 1:
         with torch.no_grad():
             for p in params:
@@ -122,6 +156,9 @@ def barrier() -> None:
     ``distributed.py:173-177``); nothing to wait for at world 1."""
     if context.get_world_size() == 1:
         return
+    comm = context.get_host_comm()
+    if comm is not None:
+        return host_backend.barrier(comm)
     device = context.get_device()
     if device.type == "cuda":
         tdist.barrier(device_ids=[device.index])

@@ -16,6 +16,9 @@ Run::
     python -m distributed_pytorch_tpu_torch.examples.min_ddp \\
         --device cpu --nprocs 2 --batch-size 4
         # two CPU ranks over gloo
+    DPX_BACKEND=host python -m distributed_pytorch_tpu_torch.examples.min_ddp \\
+        --device cpu --nprocs 2 --batch-size 4 --grad-reduce quant
+        # two CPU ranks over the native host group, quantized gradients
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from distributed_pytorch_tpu_torch.ops.losses import \
     cross_entropy_per_example
 from distributed_pytorch_tpu_torch.optim import adamw
 from distributed_pytorch_tpu_torch.parallel import make_train_step
+from distributed_pytorch_tpu_torch.parallel.data_parallel import \
+    GRAD_REDUCE_MODES
 
 
 def parse_args(argv=None):
@@ -56,6 +61,16 @@ def parse_args(argv=None):
     parser.add_argument("--nprocs", default=None, type=int, metavar="N",
                         help="Ranks to start (default: one per visible "
                              "card, through launch).")
+    parser.add_argument("--grad-reduce", default="mean",
+                        choices=GRAD_REDUCE_MODES,
+                        help="Gradient wire: the exact mean, or the "
+                             "block-quantized ring (quant/int8, q4, "
+                             "adaptive) with error feedback.")
+    parser.add_argument("--weight-update", default=None,
+                        choices=("replicated", "sharded"),
+                        help="Every rank's full update, or ZeRO-1 over "
+                             "the owned 1/world slice (default: "
+                             "DPX_WEIGHT_UPDATE).")
     return parser.parse_args(argv)
 
 
@@ -113,8 +128,11 @@ def main_worker(rank, world_size, argv=None, quiet=False, history_path=None,
         return (cross_entropy_per_example(logits, y).mean(),
                 {"preds": preds, "correct": preds == y})
 
-    step = make_train_step(loss_fn, optimizer)
-    opt_state = optimizer.init(model.parameters())
+    step = make_train_step(loss_fn, optimizer, grad_reduce=args.grad_reduce,
+                           weight_update=args.weight_update)
+    opt_state = (step.init_opt_state(model.parameters())
+                 if hasattr(step, "init_opt_state")
+                 else optimizer.init(model.parameters()))
 
     history = []
     if not quiet:

@@ -1,9 +1,9 @@
 """int8 weights for inference, and the block codec of the quantized KV
 pages, on tensors.
 
-Counterpart of ``distributed_pytorch_tpu/ops/quant.py`` (the weight side
-and the page codecs; the gradient wire's ``ErrorFeedback`` and outlier
-statistic wait for the quantized collectives).
+Counterpart of ``distributed_pytorch_tpu/ops/quant.py`` (the weight side,
+the page codecs, and the gradient wire's :class:`ErrorFeedback` and
+outlier statistic :func:`block_outlier_frac`).
 
 **Weights**: symmetric per-channel int8, one f32 scale per output
 channel, dequantized on the fly into the model dtype. The JAX package
@@ -28,6 +28,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+import numpy as np
+
+from ..comm import wire as _wire
 from ..comm.wire import QUANT_BLOCK, num_blocks, quant_levels
 
 # weight matrices smaller than this stay unquantized (LN scales, biases,
@@ -212,3 +215,63 @@ def unpack_page_nibbles(packed: torch.Tensor) -> torch.Tensor:
     hi = torch.bitwise_right_shift(b, 4)
     return torch.stack([lo, hi], dim=-1).reshape(
         packed.shape[:-1] + (packed.shape[-1] * 2,))
+
+
+# ---------------------------------------------------------------------------
+# the gradient wire: the outlier statistic and error feedback
+# ---------------------------------------------------------------------------
+
+
+def block_outlier_frac(flat: torch.Tensor, block: int = QUANT_BLOCK,
+                       thresh: float = _wire.DYNRANGE_THRESH
+                       ) -> torch.Tensor:
+    """The tensor twin of ``comm/wire.py``'s ``block_outlier_frac``: the
+    fraction of nonzero blocks of ``flat`` whose ``amax / rms`` exceeds
+    ``thresh``, as a 0-d f32 tensor on ``flat``'s device (the adaptive
+    chooser's statistic, computed where the reduced bucket lives, so one
+    scalar crosses to the host). All-zero blocks are neither counted nor
+    hostile; the ragged tail's rms divides by its real element count."""
+    flat = flat.to(torch.float32).reshape(-1)
+    n = flat.numel()
+    pad = (-n) % block
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    v = flat.reshape(-1, block)
+    amax = v.abs().amax(dim=-1)
+    counts = torch.full((v.shape[0],), float(block), dtype=torch.float32,
+                        device=v.device)
+    if pad:
+        counts[-1] = block - pad
+    rms = torch.sqrt(v.square().sum(dim=-1) / counts)
+    valid = rms > 0.0
+    hostile = valid & (amax > thresh * rms)
+    return hostile.sum().to(torch.float32) / valid.sum().clamp_min(1)
+
+
+class ErrorFeedback:
+    """Error-feedback residual for repeated lossy gradient reduction
+    (EF-SGD): step t's quantization error is added to step t+1's input,
+    so what crosses the wire averages to the true gradient over steps.
+
+    ``compensate(flat)`` adds the carried residual, rounds the sum onto
+    the wire grid it will travel on (so the first hop is exact), keeps
+    the new residual and returns the grid value. Host-resident numpy
+    state, width-aware (``bits=4`` rounds onto the q4 grid); the
+    residual survives width flips unchanged, being only the part not yet
+    sent. The JAX package's ``ops/quant.py`` ``ErrorFeedback``."""
+
+    def __init__(self, block: int = None, bits: int = 8):
+        self.block = block or QUANT_BLOCK
+        self.bits = bits
+        self.residual = None
+
+    def compensate(self, flat, bits: int = None) -> np.ndarray:
+        bits = self.bits if bits is None else bits
+        flat = np.ascontiguousarray(flat, dtype=np.float32).ravel()
+        if self.residual is None or self.residual.size != flat.size:
+            self.residual = np.zeros(flat.size, np.float32)
+        e = flat + self.residual
+        q, s = _wire.quantize_blocks(e, self.block, bits)
+        grid = _wire.dequantize_blocks(q, s, self.block)
+        self.residual = e - grid
+        return grid

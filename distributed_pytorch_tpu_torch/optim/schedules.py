@@ -128,7 +128,7 @@ def with_schedule(opt_factory: Callable[[float], Optimizer],
         torch._foreach_copy_(moved, new)
         return ScheduledState(step=state.step + 1, inner=inner)
 
-    return Optimizer(init, update)
+    return Optimizer(init, _inherit(update, unit))
 
 
 def global_norm(tensors: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
@@ -151,11 +151,27 @@ def clip_by_global_norm(grads, max_norm: float) -> List:
     return [None if g is None else next(scaled) for g in grads]
 
 
+def reduces_across_leaves(opt: Optimizer) -> bool:
+    """Whether ``opt``'s update reads all the gradients together (global
+    norm clipping, inside any wrapper): such an update cannot run on one
+    bucket or one flat slice at a time (the overlapped and the sharded
+    train steps refuse it)."""
+    return bool(getattr(opt.update, "reduces_across_leaves", False))
+
+
+def _inherit(update, *inner: Optimizer):
+    """Mark a wrapper's ``update`` as its inner optimizer is marked."""
+    update.reduces_across_leaves = any(reduces_across_leaves(o)
+                                       for o in inner)
+    return update
+
+
 def with_clipping(opt: Optimizer, max_norm: float) -> Optimizer:
     """Clip the gradients by global norm before the inner update."""
     def update(grads, state, params):
         return opt.update(clip_by_global_norm(list(grads), max_norm), state,
                           params)
+    update.reduces_across_leaves = True
     return Optimizer(opt.init, update)
 
 
@@ -193,7 +209,7 @@ def accumulate(opt: Optimizer, every: int) -> Optimizer:
         torch._foreach_zero_(state.acc)
         return AccumState(0, state.acc, inner)
 
-    return Optimizer(init, update)
+    return Optimizer(init, _inherit(update, opt))
 
 
 class EmaState(NamedTuple):
@@ -229,7 +245,7 @@ def with_ema(opt: Optimizer, decay: float = 0.999) -> Optimizer:
             [p.to(torch.float32) for p in params], 1.0 - decay))
         return EmaState(ema=state.ema, inner=inner)
 
-    return Optimizer(init, update)
+    return Optimizer(init, _inherit(update, opt))
 
 
 def ema_params(state, like: Optional[Sequence[torch.Tensor]] = None):
@@ -267,4 +283,4 @@ def with_master_f32(opt: Optimizer) -> Optimizer:
         torch._foreach_copy_(list(params), state.master)
         return MasterState(master=state.master, inner=inner)
 
-    return Optimizer(init, update)
+    return Optimizer(init, _inherit(update, opt))

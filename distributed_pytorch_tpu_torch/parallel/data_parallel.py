@@ -8,23 +8,27 @@ Counterpart of ``distributed_pytorch_tpu/parallel/data_parallel.py``
 ``mp_cast_params``, ``DataParallel``, ``prepare_ddp_model``), in the
 per-rank form of its host front door (``_make_host_train_step``): every
 rank process runs ``step(model, opt_state, batch) -> StepOutput`` on its
-own local batch.
+own local batch, through one of the JAX package's two doors: the host
+door over the native group (``_make_host_train_step``) or, in place of
+its compiled single-controller door, torch.distributed.
 The params are the ``nn.Module`` (updated in place), ``opt_state`` is
 what ``optimizer.init(model.parameters())`` returned, and the loss comes
 back as this rank's ``(1,)`` mean. At world > 1 the gradients are
 averaged over the ranks once per step, between backward and the
 optimizer update, so every rank applies the same update.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the quantized ``grad_reduce`` modes and ``weight_update=
-"sharded"`` (ZeRO-1), both ROADMAP.md Queue A item 5.
+Every ``grad_reduce`` mode (the exact mean and the quantized wires),
+the overlapped buckets of the host door and ``weight_update="sharded"``
+(ZeRO-1, ``optim/sharded/``) are ported.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Any, Callable, Iterator, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -33,8 +37,11 @@ from ..optim import Optimizer
 from ..runtime import context
 from ..runtime import env as _env
 
-#: grad_reduce spellings of the JAX package; only "mean" is ported.
+#: grad_reduce spellings accepted by :func:`make_train_step`.
 GRAD_REDUCE_MODES = ("mean", "int8", "quant", "q4", "adaptive")
+
+#: weight_update modes accepted by :func:`make_train_step`.
+WEIGHT_UPDATES = ("replicated", "sharded")
 
 #: mixed_precision policies accepted by :func:`make_train_step`.
 MP_POLICIES = ("off", "bf16")
@@ -87,17 +94,60 @@ def _average_grads(grads, world: int) -> None:
     flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
     torch.distributed.all_reduce(flat)
     flat /= world
+    _scatter_flat(flat, grads)
+
+
+def _scatter_flat(flat: torch.Tensor, tensors) -> None:
+    """Copy consecutive pieces of ``flat`` into ``tensors`` in place,
+    each cast to its dtype."""
     off = 0
-    for g in grads:
-        n = g.numel()
-        g.copy_(flat[off:off + n].view_as(g))
+    for t in tensors:
+        n = t.numel()
+        t.copy_(flat[off:off + n].view_as(t))
         off += n
+
+
+def _wire_format(grad_reduce: str) -> str:
+    """A grad_reduce spelling as a wire format of
+    ``comm/host_backend.py`` (``"int8"`` is ``"quant"``)."""
+    return "quant" if grad_reduce in ("quant", "int8") else grad_reduce
+
+
+def forward_backward(loss_fn: Callable, mixed_precision: str) -> Callable:
+    """``run(model, batch) -> (params, grads, loss, metrics)``: clears
+    the gradients, runs the forward (on the bf16 casts under
+    ``mixed_precision="bf16"``) and the backward. ``grads`` lines up with
+    ``params`` (``model.parameters()``): a zero tensor for a trainable
+    parameter the loss does not reach, ``None`` for a frozen one."""
+    cast = mp_cast_params if mixed_precision == "bf16" \
+        else contextlib.nullcontext
+
+    def run(model, batch):
+        params = list(model.parameters())
+        for p in params:
+            p.grad = None
+        with cast(model):
+            loss, metrics = loss_fn(model, batch)
+            loss.backward()
+        grads = [(p.grad if p.grad is not None else torch.zeros_like(p))
+                 if p.requires_grad else None for p in params]
+        return params, grads, loss, metrics
+
+    return run
+
+
+def step_output(model, opt_state, loss, metrics) -> StepOutput:
+    return StepOutput(model, opt_state, loss.detach().reshape(1),
+                      context.map_tensors(torch.Tensor.detach, metrics))
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                     donate: Optional[bool] = None,
                     grad_reduce: str = "mean",
                     weight_update: Optional[str] = None,
+                    overlap: Optional[bool] = None,
+                    comm_buckets: Optional[int] = None,
+                    on_bucket_ready: Optional[Callable] = None,
                     mixed_precision: Optional[str] = None) -> Callable:
     """A training step ``step(model, opt_state, batch) -> StepOutput``.
 
@@ -111,6 +161,47 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     ``None``, which the optimizer skips, so neither weight decay nor the
     all-reduce touches it. Buffers are left alone.
 
+    ``grad_reduce``: ``"mean"`` (exact), ``"quant"`` (alias ``"int8"``;
+    width from ``DPX_WIRE_WIDTH``, default 8 bits), ``"q4"`` or
+    ``"adaptive"`` (width per bucket from the reduced bucket's dynamic
+    range, with hysteresis; the chooser is ``step.width_chooser``). Two
+    doors, as in the JAX package:
+
+    * the **host door**, while a native host group is live
+      (``DPX_BACKEND=host``): the gradients go to the host as one flat
+      float32 bucket in parameter order; under a quantized mode an
+      :class:`~..ops.quant.ErrorFeedback` residual rounds it onto the
+      wire grid (carrying each step's rounding into the next), the
+      native quantized ring reduces it (two-level under
+      ``DPX_HIER_RING``), and the mean comes back to each gradient's
+      device and dtype. ``overlap`` (default ``DPX_COMM_OVERLAP``) cuts
+      the bucket into ``comm_buckets`` (default ``DPX_COMM_BUCKETS``)
+      contiguous buckets and dispatches each bucket's update before the
+      next bucket's ring runs; a bucket's ring time counts as
+      ``overlapped_s`` in the comm's ``CommStats`` only while an update
+      issued before it is still running on the card (a CUDA event not
+      yet reached), else ``exposed_s``. The overlapped step keeps one
+      optimizer state per bucket: build it with
+      ``step.init_opt_state(params)``; an optimizer that reads all the
+      gradients together (global-norm clipping) is refused.
+      ``on_bucket_ready(b, n_buckets, nbytes)`` is called as each bucket
+      reaches the host. ``step.host_times`` sums the host seconds of the
+      device-to-host copy (``d2h_s``), the codec (``codec_s``), the ring
+      (``ring_s``) and the copy back (``h2d_s``);
+    * the **torch.distributed door** (NCCL / gloo): each gradient is
+      zero-padded to a ``QUANT_BLOCK`` multiple and the concatenation
+      takes one ``comm.primitives.quantized_pmean``; the adaptive
+      chooser reads the outlier statistic of the unpadded reduced
+      gradients. At world 1 every mode is the exact mean. ``overlap``,
+      ``comm_buckets`` and ``on_bucket_ready`` change nothing here.
+
+    ``weight_update``: ``"replicated"`` (every rank runs the whole
+    update) or ``"sharded"`` (ZeRO-1, ``optim/sharded/``: reduce-scatter,
+    the update of the owned 1/world flat slice, all-gather; state from
+    ``step.init_opt_state(params)``); ``None`` reads
+    ``DPX_WEIGHT_UPDATE``. The sharded update speaks ``mean`` and the
+    8-bit ``quant`` only.
+
     ``mixed_precision``: ``"off"`` or ``"bf16"`` (``None`` reads
     ``DPX_MP_POLICY``). Under ``bf16`` the forward and backward run on
     the bf16 cast of the float32 parameters (:func:`mp_cast_params`)
@@ -122,41 +213,273 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     if grad_reduce not in GRAD_REDUCE_MODES:
         raise ValueError(f"grad_reduce must be one of {GRAD_REDUCE_MODES}, "
                          f"got {grad_reduce!r}")
-    if grad_reduce != "mean":
-        raise NotImplementedError(
-            f"grad_reduce={grad_reduce!r} is not ported yet (the quantized "
-            f"gradient wire: ROADMAP.md Queue A item 5)")
-    if weight_update not in (None, "replicated", "sharded"):
+    if weight_update is None:
+        weight_update = _env.get("DPX_WEIGHT_UPDATE")
+    if weight_update not in WEIGHT_UPDATES:
         raise ValueError(f"weight_update must be replicated|sharded, got "
                          f"{weight_update!r}")
-    if weight_update == "sharded":
-        raise NotImplementedError(
-            "weight_update='sharded' (ZeRO-1) is not ported yet "
-            "(ROADMAP.md Queue A item 5)")
+    if weight_update == "sharded" and grad_reduce in ("q4", "adaptive"):
+        raise ValueError(
+            "weight_update='sharded' supports grad_reduce mean|quant|int8 "
+            "only (the sharded gather leg pins the q8 grid its "
+            "exact-master error feedback assumes); use "
+            "weight_update='replicated' with q4/adaptive")
     mp = (_env.get("DPX_MP_POLICY") if mixed_precision is None
           else mixed_precision)
     if mp not in MP_POLICIES:
         raise ValueError(f"mixed_precision must be one of {MP_POLICIES}, "
                          f"got {mp!r}")
+    if weight_update == "sharded":
+        from ..optim.sharded import make_sharded_train_step
+        return make_sharded_train_step(loss_fn, optimizer, donate=donate,
+                                       grad_reduce=grad_reduce,
+                                       mixed_precision=mp)
     del donate
-    cast = mp_cast_params if mp == "bf16" else contextlib.nullcontext
+    fb = forward_backward(loss_fn, mp)
+    if context.get_host_comm() is not None:
+        return _make_host_train_step(fb, optimizer, grad_reduce, overlap,
+                                     comm_buckets, on_bucket_ready)
+    return _make_dist_train_step(fb, optimizer, grad_reduce)
+
+
+def _make_dist_train_step(fb: Callable, optimizer: Optimizer,
+                          grad_reduce: str) -> Callable:
+    """The torch.distributed door of :func:`make_train_step`."""
+    from ..comm import host_backend as _hb
+    from ..comm import primitives as prim
+    from ..comm.wire import WidthChooser
+    from ..ops.quant import block_outlier_frac
+
+    adaptive, bits = False, 8
+    if grad_reduce != "mean":
+        width = _hb.resolve_wire_width(_wire_format(grad_reduce))
+        adaptive = width == "adaptive"
+        bits = 8 if adaptive else width
+    chooser = WidthChooser() if adaptive else None
+    block = prim.QUANT_BLOCK
+
+    def reduce_quantized(grads, width):
+        pieces = []
+        for g in grads:
+            f = g.reshape(-1).to(torch.float32)
+            pad = (-f.numel()) % block
+            pieces.append(torch.nn.functional.pad(f, (0, pad)) if pad
+                          else f)
+        red = prim.quantized_pmean(torch.cat(pieces), bits=width)
+        out, off = [], 0
+        for g in grads:
+            n = g.numel()
+            out.append(red[off:off + n])
+            off += n + ((-n) % block)
+        for g, r in zip(grads, out):
+            g.copy_(r.view_as(g))
+        return out
 
     def step(model, opt_state, batch) -> StepOutput:
-        params = list(model.parameters())
-        for p in params:
-            p.grad = None
-        with cast(model):
-            loss, metrics = loss_fn(model, batch)
-            loss.backward()
-        grads = [(p.grad if p.grad is not None else torch.zeros_like(p))
-                 if p.requires_grad else None for p in params]
+        params, grads, loss, metrics = fb(model, batch)
         world = context.get_world_size()
-        if world > 1:
-            _average_grads([g for g in grads if g is not None], world)
+        live = [g for g in grads if g is not None]
+        if world > 1 and live:
+            if grad_reduce == "mean":
+                _average_grads(live, world)
+            else:
+                width = chooser.width if chooser is not None else bits
+                reduced = reduce_quantized(live, width)
+                if chooser is not None:
+                    # the statistic of the unpadded reduced gradients,
+                    # the same input the host door's chooser reads
+                    chooser.observe_frac(float(block_outlier_frac(
+                        torch.cat(reduced), block)))
         opt_state = optimizer.update(grads, opt_state, params)
-        return StepOutput(model, opt_state, loss.detach().reshape(1),
-                          context.map_tensors(torch.Tensor.detach, metrics))
+        return step_output(model, opt_state, loss, metrics)
 
+    step.width_chooser = chooser
+    return step
+
+
+def trainable(params) -> list:
+    """The parameters that require gradients, of a module or an
+    iterable: the tensors a per-bucket or sharded optimizer state
+    covers."""
+    if isinstance(params, nn.Module):
+        params = params.parameters()
+    return [p for p in params if p.requires_grad]
+
+
+def _partition_contiguous(sizes, k: int):
+    """Indices split into <= k contiguous groups balanced by element
+    count (greedy on the running total; the JAX package's). Depends on
+    the sizes alone, so every rank partitions alike."""
+    k = max(1, min(int(k), len(sizes)))
+    if k == 1:
+        return [list(range(len(sizes)))]
+    total = sum(sizes)
+    groups, cur, acc = [], [], 0
+    for i, s in enumerate(sizes):
+        cur.append(i)
+        acc += s
+        # close the group once the running count crosses the next
+        # k-quantile of the total (k is a cap: tiny lists give fewer)
+        if acc * k >= total * (len(groups) + 1) \
+                and len(groups) < k - 1:
+            groups.append(cur)
+            cur = []
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def _outstanding(pending) -> bool:
+    """Whether an update issued before is still running on the card: a
+    CUDA event recorded after it not yet reached. CPU work is done when
+    its call returns."""
+    return any(ev is not None and not ev.query() for ev in pending)
+
+
+def _make_host_train_step(fb: Callable, optimizer: Optimizer,
+                          grad_reduce: str, overlap: Optional[bool],
+                          comm_buckets: Optional[int],
+                          on_bucket_ready: Optional[Callable]) -> Callable:
+    """The host door of :func:`make_train_step` (JAX
+    ``parallel/data_parallel.py:219-465`` ``_make_host_train_step``)."""
+    from ..comm import host_backend as _hb
+    from ..comm.wire import WidthChooser
+    from ..ops.quant import ErrorFeedback
+    from ..optim.schedules import reduces_across_leaves
+
+    comm = context.get_host_comm()
+    world = comm.world
+    quant = grad_reduce != "mean"
+    width = _hb.resolve_wire_width(_wire_format(grad_reduce)) \
+        if quant else None
+    chooser = WidthChooser() if width == "adaptive" else None
+    if overlap is None:
+        overlap = bool(_env.get("DPX_COMM_OVERLAP"))
+    n_buckets = comm_buckets if comm_buckets is not None \
+        else int(_env.get("DPX_COMM_BUCKETS"))
+    if not overlap:
+        n_buckets = 1
+    if overlap and reduces_across_leaves(optimizer):
+        raise ValueError(
+            "overlap=True updates one bucket of gradients at a time: an "
+            "optimizer that reads all of them together (global-norm "
+            "clipping) cannot run that way; use overlap=False")
+    efs = {}            # bucket -> ErrorFeedback (sizes differ per bucket)
+    times = {"d2h_s": 0.0, "codec_s": 0.0, "ring_s": 0.0, "h2d_s": 0.0}
+
+    def reduce_bucket(b, flat, bits, hidden):
+        if quant:
+            t0 = time.perf_counter()
+            flat = efs.setdefault(b, ErrorFeedback()).compensate(
+                flat, bits=bits)
+            t1 = time.perf_counter()
+            _hb.quant_ring(comm, flat, bits, hidden)
+        else:
+            t1 = time.perf_counter()
+            comm.allreduce(flat, hidden=hidden)
+        flat /= world                       # DDP averages gradients
+        times["ring_s"] += time.perf_counter() - t1
+        if quant:
+            times["codec_s"] += t1 - t0
+        return flat
+
+    def to_host(live):
+        """The gradients as one float32 host bucket (one copy)."""
+        dev = torch.cat([g.reshape(-1).to(torch.float32) for g in live])
+        if dev.is_cuda:             # the copy alone, not the backward
+            torch.cuda.synchronize(dev.device)
+        t0 = time.perf_counter()
+        flat = dev.cpu().numpy()
+        times["d2h_s"] += time.perf_counter() - t0
+        return flat
+
+    def to_device(flat, tensors):
+        t0 = time.perf_counter()
+        dev = torch.from_numpy(flat).to(tensors[0].device)
+        _scatter_flat(dev, tensors)
+        times["h2d_s"] += time.perf_counter() - t0
+
+    def observe(reduced):
+        # the reduced mean bucket is bit-identical on every rank, so the
+        # width state machines agree world-wide
+        if chooser is not None:
+            chooser.observe(np.concatenate(reduced) if len(reduced) > 1
+                            else reduced[0])
+
+    def bits_now():
+        return chooser.width if chooser is not None else (width or 8)
+
+    if not overlap:
+        def step(model, opt_state, batch) -> StepOutput:
+            params, grads, loss, metrics = fb(model, batch)
+            live = [g for g in grads if g is not None]
+            if live:
+                flat = to_host(live)
+                if on_bucket_ready is not None:
+                    on_bucket_ready(0, 1, flat.nbytes)
+                flat = reduce_bucket(0, flat, bits_now(), False)
+                observe([flat])
+                to_device(flat, live)
+            opt_state = optimizer.update(grads, opt_state, params)
+            return step_output(model, opt_state, loss, metrics)
+
+        step.width_chooser = chooser
+        step.host_times = times
+        return step
+
+    def groups_for(tensors):
+        return _partition_contiguous([t.numel() for t in tensors],
+                                     n_buckets)
+
+    def init_opt_state(params):
+        """One optimizer state per bucket of the trainable
+        parameters."""
+        ps = trainable(params)
+        return [optimizer.init([ps[i] for i in idx])
+                for idx in groups_for(ps)]
+
+    def step(model, opt_state, batch) -> StepOutput:
+        params, grads, loss, metrics = fb(model, batch)
+        ps = [p for p, g in zip(params, grads) if g is not None]
+        gs = [g for g in grads if g is not None]
+        groups = groups_for(gs)
+        # a list, as init_opt_state builds it: an optimizer state is
+        # itself a tuple, which a length check alone could take for one
+        if not isinstance(opt_state, list) or len(opt_state) != len(groups):
+            raise TypeError(
+                "the overlapped host step keeps one optimizer state per "
+                "bucket: build opt_state with step.init_opt_state(params), "
+                "not optimizer.init")
+        # every bucket reaches the host in one copy before any update is
+        # issued: a later copy would wait for the updates queued before it
+        flat = to_host(gs)
+        bits = bits_now()
+        new_states, pending, reduced, off = [], [], [], 0
+        for b, idx in enumerate(groups):
+            n = sum(gs[i].numel() for i in idx)
+            piece = flat[off:off + n]
+            off += n
+            if on_bucket_ready is not None:
+                on_bucket_ready(b, len(groups), piece.nbytes)
+            hidden = _outstanding(pending)
+            piece = reduce_bucket(b, piece, bits, hidden)
+            reduced.append(piece)
+            g_sub = [gs[i] for i in idx]
+            to_device(piece, g_sub)
+            # issued and not waited for: the card runs it while the next
+            # bucket's ring runs on the host
+            new_states.append(optimizer.update(
+                g_sub, opt_state[b], [ps[i] for i in idx]))
+            if g_sub[0].is_cuda:
+                ev = torch.cuda.Event()
+                ev.record()
+                pending.append(ev)
+        observe(reduced)
+        return step_output(model, new_states, loss, metrics)
+
+    step.width_chooser = chooser
+    step.init_opt_state = init_opt_state
+    step.host_times = times
     return step
 
 

@@ -178,3 +178,53 @@ register("DPX_METRICS_LOG", "str", None,
          "Line-JSON file receiving structured events: the "
          "`worker_failure` of `launch_multiprocess` (`utils.logging."
          "append_event`).")
+
+# -- the native host process group (runtime/native.py HostComm), the
+# gradient wire it carries (comm/host_backend.py, parallel/
+# data_parallel.py) and the sharded update (optim/sharded/); defaults
+# and types are the JAX package's
+register("DPX_BACKEND", "str", None,
+         "Force the process-group backend; `host` selects the native TCP "
+         "per-rank-process group (runtime/native.py HostComm over "
+         "native/dpxhost.cpp) instead of torch.distributed.")
+register("DPX_COMM_TIMEOUT_MS", "int", 300_000,
+         "Per-collective deadline in ms for the native host group "
+         "(0 disables). A wedged peer becomes a typed `CommTimeout`, "
+         "never an infinite hang.")
+register("DPX_COMM_SANITIZE", "bool", False,
+         "Arm the runtime collective sanitizer: every host-group "
+         "collective first exchanges a fixed-size fingerprint (seq no, "
+         "op, dtype, nbytes, call site) and a cross-rank divergence "
+         "raises a typed `CollectiveMismatch` within one exchange "
+         "(comm/sanitizer.py).")
+register("DPX_WIRE_WIDTH", "str", "8",
+         "Default wire width of the quantized collectives under "
+         "`wire=\"quant\"`/`grad_reduce=\"quant\"`: `8` (block int8), "
+         "`4` (nibble-packed, ~7.9x less traffic than f32), or "
+         "`adaptive` (per-bucket WidthChooser with hysteresis).")
+register("DPX_HIER_RING", "int", 0,
+         "Ranks per host of the two-level hierarchical ring (0/1 = "
+         "flat). When it divides the world, the quantized gradient "
+         "reduce runs exact intra-host to one leader per host and the "
+         "quantized ring only between leaders (comm/hier.py).")
+register("DPX_COMM_OVERLAP", "bool", False,
+         "Overlap gradient-bucket ring traffic with the previous "
+         "bucket's optimizer update in the host train step (bucketed "
+         "issue + CommStats overlapped/exposed accounting).")
+register("DPX_COMM_BUCKETS", "int", 4,
+         "Gradient bucket count of the overlapped host train step "
+         "(clamped to the leaf count; only read when the overlap path "
+         "is active).")
+register("DPX_WEIGHT_UPDATE", "str", "replicated",
+         "Default weight-update mode of `parallel.make_train_step`: "
+         "`replicated` (every rank runs the full optimizer step) or "
+         "`sharded` (ZeRO-1: reduce-scatter, a step on the owned 1/world "
+         "slice, all-gather; optim/sharded/).")
+register("DPX_RETRY_MAX", "int", 2,
+         "Bounded retry budget of the host group's rendezvous: a failed "
+         "connect is re-entered up to this many times (total attempts = "
+         "1 + budget) before raising the typed CommRetryExhausted. "
+         "Collectives mid-flight never retry.")
+register("DPX_RETRY_BACKOFF_MS", "float", 25.0,
+         "Base backoff of the rendezvous retry: attempt k sleeps "
+         "base*2^(k-1) ms before re-entering.")

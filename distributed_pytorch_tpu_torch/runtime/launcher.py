@@ -33,12 +33,31 @@ def launch(worker_fn: Callable, *args) -> None:
         worker_fn(0, 0, *args)
 
 
-def find_free_port() -> int:
-    """A TCP port the kernel reports free (reference ``distributed.py:
-    32-37``), for the group's rendezvous. The port is released before
-    rank 0 binds it, so another process can take it in between: rank 0
-    then fails with "address already in use" and the run raises."""
+def _bindable(port: int) -> bool:
     with closing(socket.socket(socket.AF_INET, socket.SOCK_STREAM)) as s:
         s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        s.bind(("", 0))
-        return s.getsockname()[1]
+        try:
+            s.bind(("", port))
+        except OSError:
+            return False
+        return True
+
+
+def find_free_port(span: int = 1) -> int:
+    """A TCP port the kernel reports free (reference ``distributed.py:
+    32-37``), for the group's rendezvous; with ``span`` > 1, the first
+    of ``span`` consecutive free ports (a native host group's rank r
+    listens on ``port + r``). The ports are released before the ranks
+    bind them, so another process can take one in between: the
+    rendezvous then fails and the run raises."""
+    for _ in range(64):
+        with closing(socket.socket(socket.AF_INET, socket.SOCK_STREAM)) as s:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind(("", 0))
+            port = s.getsockname()[1]
+        if span == 1:
+            return port
+        if port + span <= 65536 and all(
+                _bindable(p) for p in range(port, port + span)):
+            return port
+    raise RuntimeError(f"no {span} consecutive free TCP ports found")

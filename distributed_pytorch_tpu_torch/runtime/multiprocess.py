@@ -6,15 +6,30 @@ Counterpart of ``distributed_pytorch_tpu/runtime/multiprocess.py:87-169``.
 ``DPX_MASTER_PORT``, a free port) and what it owns
 (``DPX_MULTIPROC_ACCEL``): by default rank r owns ``cuda:r`` and the
 group speaks NCCL, which runs no two ranks on one device; with
-``device="cpu"`` the ranks hold CPU tensors and speak gloo. Like
-``join=True`` (reference ``distributed.py:51-52``), the first failing
-rank's traceback is raised in the parent, and the other ranks are
-terminated rather than left blocked in a collective.
+``device="cpu"`` the ranks hold CPU tensors and speak gloo. With
+``backend="host"`` (or ``DPX_BACKEND=host`` in the parent) the ranks make
+the native TCP group of ``native/dpxhost.cpp`` instead, on the same
+devices. Like ``join=True`` (reference
+``distributed.py:51-52``), the first failing rank's traceback is raised
+in the parent, and the other ranks are terminated rather than left
+blocked in a collective; a rank's typed comm failure reaches the parent
+with its op and the peer it blames.
+
+A failing rank leaves deterministically with exit code 1: its traceback
+goes on the queue (and to stderr), its group is torn down while the
+interpreter is still whole (a host group's links aborted, so its peers
+fail typed at once), the queue is flushed, and the process ends with
+``os._exit(1)`` (a ``SystemExit`` keeps its code, and one of 0 or
+``None`` is a clean exit, with nothing queued). Re-raising instead
+would leave the teardown of a live gloo group to interpreter
+finalization, which can abort the process (SIGABRT) in place of exit 1.
 """
 
 from __future__ import annotations
 
 import multiprocessing as mp
+import os
+import sys
 import traceback
 from typing import Callable, Optional
 
@@ -26,32 +41,62 @@ from .launcher import find_free_port
 from .watchdog import ProcessSupervisor, WorkerFailure
 
 
+def _failure_meta(exc: BaseException) -> Optional[dict]:
+    """The attribution of a typed comm failure, else ``None``."""
+    from .native import CommError
+    if isinstance(exc, CommError):
+        return {"kind": type(exc).__name__, "op": exc.op, "peer": exc.peer}
+    return None
+
+
 def _worker_shim(rank: int, world_size: int, rank_env: dict,
                  worker_fn: Callable, args: tuple, err_q) -> None:
     try:
         for name, value in rank_env.items():
             _env.set(name, value)
         worker_fn(rank, world_size, *args)
-    except BaseException:
-        err_q.put((rank, traceback.format_exc()))
-        raise
+    except BaseException as exc:
+        if isinstance(exc, SystemExit) and exc.code in (0, None):
+            code = 0                  # a rank that ends on purpose
+        else:
+            tb = traceback.format_exc()
+            err_q.put((rank, tb, _failure_meta(exc)))
+            sys.stderr.write(tb)
+            code = exc.code if isinstance(exc, SystemExit) and isinstance(
+                exc.code, int) else 1
+        try:
+            context.abort_process_group()
+        finally:
+            err_q.close()
+            err_q.join_thread()
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(code)
     if context.is_initialized():
         context.destroy_process_group()
 
 
 def launch_multiprocess(worker_fn: Callable, nprocs: int, *args,
                         device: Optional[str] = None,
-                        timeout_s: Optional[float] = None) -> None:
+                        timeout_s: Optional[float] = None,
+                        backend: Optional[str] = None) -> None:
     """Run ``worker_fn(rank, nprocs, *args)`` in ``nprocs`` processes.
 
     ``worker_fn`` and ``args`` are pickled (``spawn``), so the function
     is a module-level one. ``device``: ``None`` or ``"cuda"`` gives rank
     r ``cuda:r`` and needs ``nprocs`` visible cards; ``"cpu"`` makes CPU
-    ranks over gloo. ``timeout_s`` bounds the whole run: past it every
-    rank is terminated and :class:`WorkerFailure` raised, as on the
-    first abnormal exit."""
+    ranks over gloo. ``backend``: ``None`` reads ``DPX_BACKEND``;
+    ``"host"`` makes the native group on the same devices and passes
+    ``DPX_BACKEND=host`` on to the ranks. ``timeout_s`` bounds the
+    whole run: past it every rank is terminated and
+    :class:`WorkerFailure` raised, as on the first abnormal exit."""
     if nprocs < 1:
         raise ValueError(f"nprocs must be >= 1, got {nprocs}")
+    if backend is None:
+        backend = _env.get("DPX_BACKEND")
+    if backend not in (None, "", "host"):
+        raise ValueError(f"backend must be None or 'host', got {backend!r}")
+    host = backend == "host"
     accel = "cuda" if device is None else torch.device(device).type
     if accel not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
@@ -62,7 +107,11 @@ def launch_multiprocess(worker_fn: Callable, nprocs: int, *args,
             f"{torch.cuda.device_count()} visible: pass device='cpu' for "
             "CPU ranks over gloo")
     rank_env = {"DPX_MULTIPROC_ACCEL": accel, "DPX_MASTER_ADDR": "127.0.0.1",
-                "DPX_MASTER_PORT": find_free_port()}
+                # a host group takes base + rank and the hierarchical
+                # ring's sub-groups the ports past them (comm/hier.py)
+                "DPX_MASTER_PORT": (find_free_port(3 * nprocs + 2) if host
+                                    else find_free_port()),
+                "DPX_BACKEND": "host" if host else ""}
     ctx = mp.get_context("spawn")
     err_q = ctx.Queue()
     procs = []
@@ -82,5 +131,5 @@ def launch_multiprocess(worker_fn: Callable, nprocs: int, *args,
     except WorkerFailure as e:
         from ..utils.logging import append_event
         append_event("worker_failure", rank=e.rank, exitcode=e.exitcode,
-                     world=nprocs)
+                     world=nprocs, op=e.op, kind=e.kind)
         raise

@@ -27,20 +27,29 @@ class WorkerFailure(RuntimeError):
 
     ``rank`` is the first rank that reported an exception (``None`` when
     none did, e.g. a hard kill), or on a deadline the lowest rank still
-    running; ``exitcode`` is the first abnormal exit code (``None`` on a
-    deadline)."""
+    running; when ranks of a host group reported typed comm failures
+    blaming a peer that never reported itself (it died without a word),
+    ``rank`` is that peer. ``op`` and ``kind`` name the collective in
+    flight and the ``CommError`` subclass the ranks raised (``None`` for
+    other failures); ``exitcode`` is the first abnormal exit code
+    (``None`` on a deadline)."""
 
     def __init__(self, msg: str, *, rank: Optional[int] = None,
-                 exitcode: Optional[int] = None):
+                 exitcode: Optional[int] = None, op: Optional[str] = None,
+                 kind: Optional[str] = None):
         super().__init__(msg)
         self.rank = rank
         self.exitcode = exitcode
+        self.op = op
+        self.kind = kind
 
 
 class ProcessSupervisor:
     """Fail-fast join over a set of rank processes.
 
-    ``err_q`` receives ``(rank, traceback)`` from every rank that raised.
+    ``err_q`` receives ``(rank, traceback, meta)`` from every rank that
+    raised, ``meta`` the ``{"kind", "op", "peer"}`` of a typed comm
+    failure or ``None``.
     After a failure the survivors get a few seconds to report their own
     errors, then the sweep: SIGTERM, and SIGKILL after ``grace_s``."""
 
@@ -93,7 +102,7 @@ class ProcessSupervisor:
                            if p.exitcode is None]
                 self.terminate_all()
                 reports = "".join(f"\nrank {r}:\n{tb}"
-                                  for r, tb in self._drain_errors())
+                                  for r, tb, _ in self._drain_errors())
                 raise WorkerFailure(
                     f"ranks {running} still running after {timeout_s} s; "
                     f"all ranks were terminated{reports}", rank=running[0])
@@ -109,9 +118,21 @@ class ProcessSupervisor:
         self.terminate_all()
         failures = self._drain_errors()
         if failures:
-            rank, tb = failures[0]
+            rank, tb, _ = failures[0]
+            metas = [(r, m) for r, _, m in failures if m]
+            op = next((m["op"] for _, m in metas if m.get("op")), None)
+            kind = next((m["kind"] for _, m in metas), None)
+            reporters = {r for r, _, _ in failures}
+            silent = sorted({m["peer"] for _, m in metas
+                             if m.get("peer", -1) >= 0} - reporters)
+            if silent:
+                raise WorkerFailure(
+                    f"worker rank {silent[0]} died during op {op!r} ({kind} "
+                    f"reported by ranks {sorted(r for r, _ in metas)}); "
+                    f"first report (rank {rank}):\n{tb}", rank=silent[0],
+                    exitcode=code, op=op, kind=kind)
             raise WorkerFailure(f"worker process (rank {rank}) failed:\n{tb}",
-                                rank=rank, exitcode=code)
+                                rank=rank, exitcode=code, op=op, kind=kind)
         raise WorkerFailure(
             f"worker process exited abnormally (exit code {code}); "
             "remaining workers were terminated", exitcode=code)

@@ -15,11 +15,12 @@ from .frames import (HANDOFF_WIDTHS, HandoffFrame, decode_frame,
                      resolve_handoff_bits)
 from .prefill import PrefillEngine
 from .router import DisaggConfig, DisaggEngine
-from .transport import LocalTransport, TransportSevered
+from .transport import HostCommTransport, LocalTransport, TransportSevered
 
 __all__ = [
     "DecodeEngine", "DisaggConfig", "DisaggEngine", "HANDOFF_WIDTHS",
-    "HandoffFrame", "LocalTransport", "PrefillEngine", "TransportSevered",
+    "HandoffFrame", "HostCommTransport", "LocalTransport", "PrefillEngine",
+    "TransportSevered",
     "decode_frame", "encode_frame", "encode_frame_quantized",
     "kv_wire_bytes", "resolve_handoff_bits",
 ]

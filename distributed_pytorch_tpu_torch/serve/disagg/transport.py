@@ -8,10 +8,11 @@ testing and single-host shape, and the one ``DisaggEngine`` builds by
 default. The frame crosses as host bytes, so no tensor is shared
 between the two loops' CUDA streams.
 
-Not ported yet: ``HostCommTransport``, the frame pipe between two OS
-processes over the native host comm group (it needs the port's host
-comm, ROADMAP.md Queue A item 5), and the fault-injection hooks of
-``send`` / ``recv`` (item 6).
+:class:`HostCommTransport` is the frame pipe between two OS processes
+over a 2-rank native host group (``runtime/native.py`` ``HostComm``).
+
+Not ported yet: the fault-injection hooks of ``send`` / ``recv``
+(ROADMAP.md Queue A item 6).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Optional
+
+import numpy as np
 
 from ...utils.profiler import CommStats
 
@@ -77,3 +80,88 @@ class LocalTransport:
     @property
     def severed(self) -> bool:
         return self._severed.is_set()
+
+
+class HostCommTransport:
+    """Frame pipe over a 2-rank :class:`~...runtime.native.HostComm`:
+    the prefill process is rank ``src``, and a frame travels as a length
+    broadcast followed by the payload broadcast. A receive blocks under
+    the native per-op deadline (``DPX_COMM_TIMEOUT_MS``), so a wedged or
+    dead peer becomes a typed failure, never a hang: the channel raises
+    :class:`TransportSevered` with the comm's ``CommPeerDied`` /
+    ``CommTimeout`` as ``__cause__``, or, while :meth:`expect` names the
+    request waiting, a deadline raises the request-attributed
+    ``HandoffTimeout``.
+
+    It is the cross-process handoff protocol, driven from each rank
+    process's own loop. It is not pollable (a broadcast cannot return
+    "nothing yet"), so ``DisaggEngine`` refuses it at construction; a
+    receiver thread feeding a local queue is the way to plug it into the
+    engine."""
+
+    pollable = False
+
+    def __init__(self, comm, src: int = 0):
+        if comm.world != 2:
+            raise ValueError(
+                f"HostCommTransport needs a 2-rank group (prefill + "
+                f"decode), got world={comm.world}")
+        self.comm = comm
+        self.src = src
+        self.stats = CommStats()
+        self.frames_sent = 0
+        self.frames_recv = 0
+        self._expected: Optional[int] = None
+
+    def expect(self, request_id: Optional[int]) -> None:
+        """Name the request the next :meth:`recv` waits for: its
+        deadline then raises ``HandoffTimeout(request_id=...)`` instead
+        of a bare :class:`TransportSevered`. ``None`` clears it."""
+        self._expected = request_id
+
+    def send(self, frame: bytes, kv_bytes: int) -> None:
+        """Send one encoded frame (from rank ``src``), booking its KV
+        wire bytes under ``handoff_send``."""
+        from ...runtime.native import CommError
+        try:
+            with self.stats.timed("handoff_send", kv_bytes):
+                self.comm.broadcast(np.array([len(frame)], np.int64),
+                                    src=self.src)
+                self.comm.broadcast(np.frombuffer(frame, np.uint8).copy(),
+                                    src=self.src)
+        except CommError as e:
+            raise TransportSevered(f"handoff send failed: {e}") from e
+        self.frames_sent += 1
+
+    def recv(self, timeout_s: float = 0.0) -> Optional[bytes]:
+        """Receive one frame, blocking (``timeout_s`` is accepted for
+        the transport interface; the native deadline governs)."""
+        from ...runtime.native import CommError, CommTimeout
+        hdr = np.zeros(1, np.int64)
+        try:
+            self.comm.broadcast(hdr, src=self.src)
+            buf = np.zeros(int(hdr[0]), np.uint8)
+            self.comm.broadcast(buf, src=self.src)
+        except CommError as e:
+            if isinstance(e, CommTimeout) and self._expected is not None:
+                from ..types import HandoffTimeout
+                raise HandoffTimeout(
+                    f"request {self._expected}: no handoff frame within "
+                    f"the comm deadline ({e.deadline_ms} ms) on the "
+                    f"cross-process transport",
+                    request_id=self._expected,
+                    deadline_ms=float(e.deadline_ms),
+                    engine="transport",
+                    iteration=self.frames_recv) from e
+            raise TransportSevered(f"handoff recv failed: {e}") from e
+        self._expected = None
+        self.frames_recv += 1
+        return buf.tobytes()
+
+    def abort(self) -> None:
+        """Tear the comm's links down: the peer fails typed at once."""
+        self.comm.abort()
+
+    @property
+    def severed(self) -> bool:
+        return False

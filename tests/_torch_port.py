@@ -41,11 +41,13 @@ def to_np(t):
     return t.detach().to(torch.float32).cpu().numpy()
 
 
-def launch_cpu_ranks(worker_fn, nprocs, *args, timeout_s=120):
-    """``launch_multiprocess`` over gloo with CPU ranks, bounded by
-    ``timeout_s`` (a hung run fails with the ranks' output, which the
-    children write to the test's captured stdout/stderr). The worker is
-    a function of the port package, so the ranks import torch only.
+def launch_cpu_ranks(worker_fn, nprocs, *args, timeout_s=120,
+                     backend=None):
+    """``launch_multiprocess`` over gloo with CPU ranks (or the native
+    host group with ``backend="host"``), bounded by ``timeout_s`` (a
+    hung run fails with the ranks' output, which the children write to
+    the test's captured stdout/stderr). The worker is a function of the
+    port package, so the ranks import torch only.
 
     The rendezvous port is free when picked but may be taken before
     rank 0 binds it (tests run in parallel): that one failure is
@@ -57,7 +59,9 @@ def launch_cpu_ranks(worker_fn, nprocs, *args, timeout_s=120):
     for attempt in range(2):
         try:
             return launch_multiprocess(worker_fn, nprocs, *args,
-                                       device="cpu", timeout_s=timeout_s)
+                                       device="cpu", timeout_s=timeout_s,
+                                       backend=backend)
         except WorkerFailure as e:
-            if attempt or "EADDRINUSE" not in str(e):
+            if attempt or not ("EADDRINUSE" in str(e)
+                               or "rendezvous failed" in str(e)):
                 raise

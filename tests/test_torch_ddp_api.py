@@ -21,6 +21,7 @@ import time
 import pytest
 import torch
 
+import _torch_host_workers as hw
 import distributed_pytorch_tpu_torch as tdist_api
 from _torch_port import launch_cpu_ranks
 from distributed_pytorch_tpu_torch.examples import collectives
@@ -213,6 +214,47 @@ def test_a_failing_rank_raises_its_traceback(tmp_path, monkeypatch):
     last = json.loads(log.read_text().splitlines()[-1])
     assert (last["event"], last["rank"], last["exitcode"], last["world"]) \
         == ("worker_failure", info.value.rank, 1, 2)
+
+
+def test_the_host_backend_keeps_the_card_default(monkeypatch):
+    """``DPX_BACKEND=host`` changes the group, not the device: a rank
+    still asks for ``cuda:r`` unless the CPU is asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    monkeypatch.delenv("DPX_MULTIPROC_ACCEL", raising=False)
+    monkeypatch.setenv("DPX_BACKEND", "host")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdist_api.launch_multiprocess(collectives.main_worker, 2, "x")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdist_api.launch_multiprocess(collectives.main_worker, 2, "x",
+                                      backend="host")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdist_api.init_process_group(0, 1)
+    assert not tdist_api.is_dist_avail_and_initialized()
+
+
+@pytest.mark.parametrize("backend", ["gloo", "host"])
+def test_a_failing_rank_exits_1_under_each_backend(tmp_path, backend):
+    """The same failure under each backend: every failing rank leaves
+    with exit code 1 (its group torn down before it exits), never a
+    signal, and the parent raises a rank's traceback."""
+    with pytest.raises(WorkerFailure, match="FileNotFoundError") as info:
+        launch_cpu_ranks(collectives.main_worker, 2,
+                         str(tmp_path / "missing"), "cpu",
+                         backend="host" if backend == "host" else None)
+    assert info.value.rank in (0, 1) and info.value.exitcode == 1
+    assert (info.value.op, info.value.kind) == (None, None)
+
+
+@pytest.mark.parametrize("backend", ["gloo", "host"])
+def test_a_rank_that_exits_0_ends_cleanly(tmp_path, backend):
+    """``sys.exit(0)`` and ``sys.exit()`` in a rank are clean exits under
+    each backend: the launch returns, and each rank got as far as its
+    exit."""
+    launch_cpu_ranks(hw.clean_exit_worker, 2, str(tmp_path),
+                     backend="host" if backend == "host" else None)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["rank0.json",
+                                                          "rank1.json"]
 
 
 def test_supervisor_deadline_terminates_a_hung_rank():

@@ -70,7 +70,14 @@ def test_importing_the_port_loads_no_jax():
             "distributed_pytorch_tpu_torch.serve.fleet, "
             "distributed_pytorch_tpu_torch.utils.checkpoint, "
             "distributed_pytorch_tpu_torch.utils.profiler, "
-            "distributed_pytorch_tpu_torch.serve.pages\n"
+            "distributed_pytorch_tpu_torch.serve.pages, "
+            "distributed_pytorch_tpu_torch.comm.host_backend, "
+            "distributed_pytorch_tpu_torch.comm.hier, "
+            "distributed_pytorch_tpu_torch.comm.primitives, "
+            "distributed_pytorch_tpu_torch.comm.sanitizer, "
+            "distributed_pytorch_tpu_torch.optim.sharded.host, "
+            "distributed_pytorch_tpu_torch.optim.sharded.spmd, "
+            "distributed_pytorch_tpu_torch.parallel.data_parallel\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
             "m.startswith(('jax.', 'jaxlib.')) or "
             "m == 'distributed_pytorch_tpu' or "

@@ -270,17 +270,29 @@ def test_train_step_matches_jax(name):
 
 
 def test_train_step_rejects_unported_modes():
-    """The quantized wire and ZeRO-1 raise, naming the ROADMAP item that
-    holds them; unknown spellings raise ValueError. (The bf16 policy and
-    world > 1 are ported: tests/test_torch_ddp_train.py.)"""
+    """Every grad_reduce spelling and ZeRO-1 are ported (no
+    NotImplementedError is left): at world 1 each trains, the quantized
+    modes as the exact mean (JAX's ``n == 1``), and ZeRO-1 builds its
+    own state; unknown spellings raise ValueError. (World > 1:
+    tests/test_torch_grad_wire.py.)"""
     opt = optim.sgd(0.1)
-    for mode in ("quant", "int8", "q4", "adaptive"):
-        with pytest.raises(NotImplementedError, match="Queue A item 5"):
-            make_train_step(_train_loss_fn_port, opt, grad_reduce=mode)
+    batch = torch.from_numpy(np.random.default_rng(3).integers(
+        0, VOCAB, (4, 17)).astype(np.int32))
+    ref = None
+    for mode in ("mean", "quant", "int8", "q4", "adaptive"):
+        model = jax_and_port_lm(seed=11)[2]
+        step = make_train_step(_train_loss_fn_port, opt, grad_reduce=mode)
+        step(model, opt.init(model.parameters()), batch)
+        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        ref = flat if ref is None else ref
+        assert torch.equal(flat, ref), mode
+    model = jax_and_port_lm(seed=11)[2]
+    step = make_train_step(_train_loss_fn_port, opt, weight_update="sharded")
+    step(model, step.init_opt_state(model.parameters()), batch)
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    assert torch.equal(flat, ref)
     with pytest.raises(ValueError):
         make_train_step(_train_loss_fn_port, opt, grad_reduce="bogus")
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        make_train_step(_train_loss_fn_port, opt, weight_update="sharded")
     with pytest.raises(ValueError):
         make_train_step(_train_loss_fn_port, opt, weight_update="bogus")
     with pytest.raises(ValueError):

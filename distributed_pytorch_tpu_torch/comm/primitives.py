@@ -10,7 +10,12 @@ input alone; at world 1 each is the identity (with the shapes JAX gives:
 ``all_gather`` adds the axis), and the divisibility errors are JAX's.
 
 Plain: :func:`psum`, :func:`pmean`, :func:`pmax`, :func:`pmin`,
-:func:`all_gather`, :func:`reduce_scatter`, :func:`all_to_all`.
+:func:`all_gather`, :func:`reduce_scatter`, :func:`all_to_all`; and
+:func:`axis_index` / :func:`axis_size`, this rank's place in a group and
+its size (the in-step rank and world of JAX's mesh axes). ``psum``,
+``pmean``, ``pmax``, ``pmin``, ``all_gather`` and ``reduce_scatter``
+take an optional ``group`` (a sub-group, such as one axis of the
+mesh: ``get_mesh()["tp"].get_group()``) in place of the default one.
 
 Quantized (the EQuARX recipe on the block codec of ``comm/wire.py``,
 ``ops/quant.py`` ``quantize_grad_blocks``): :func:`quantized_pmean` (each
@@ -37,61 +42,82 @@ from .wire import (QUANT_BLOCK, quant_leg_wire_bytes,  # noqa: F401
                    ring_allreduce_wire_bytes)
 
 
-def _world() -> int:
-    return context.get_world_size()
+def _world(group=None) -> int:
+    if group is None:
+        return context.get_world_size()
+    return tdist.get_world_size(group)
 
 
-def _all_reduce(x: torch.Tensor, op) -> torch.Tensor:
+def axis_index(group=None) -> int:
+    """This rank's position in ``group`` (default: the whole group);
+    0 outside a group."""
+    if group is None:
+        return context.get_rank()
+    return tdist.get_rank(group)
+
+
+def axis_size(group=None) -> int:
+    """The number of ranks in ``group`` (default: the world)."""
+    return _world(group)
+
+
+def _all_reduce(x: torch.Tensor, op, group=None) -> torch.Tensor:
     out = x.clone()
-    tdist.all_reduce(out, op=op)
+    tdist.all_reduce(out, op=op, group=group)
     return out
 
 
-def psum(x: torch.Tensor) -> torch.Tensor:
+def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum over the ranks."""
-    return x if _world() == 1 else _all_reduce(x, tdist.ReduceOp.SUM)
+    return x if _world(group) == 1 else _all_reduce(
+        x, tdist.ReduceOp.SUM, group)
 
 
-def pmean(x: torch.Tensor) -> torch.Tensor:
+def pmean(x: torch.Tensor, group=None) -> torch.Tensor:
     """Mean over the ranks (DDP's gradient averaging)."""
-    world = _world()
-    return x if world == 1 else _all_reduce(x, tdist.ReduceOp.SUM) / world
+    world = _world(group)
+    return x if world == 1 else _all_reduce(
+        x, tdist.ReduceOp.SUM, group) / world
 
 
-def pmax(x: torch.Tensor) -> torch.Tensor:
-    return x if _world() == 1 else _all_reduce(x, tdist.ReduceOp.MAX)
+def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
+    return x if _world(group) == 1 else _all_reduce(
+        x, tdist.ReduceOp.MAX, group)
 
 
-def pmin(x: torch.Tensor) -> torch.Tensor:
-    return x if _world() == 1 else _all_reduce(x, tdist.ReduceOp.MIN)
+def pmin(x: torch.Tensor, group=None) -> torch.Tensor:
+    return x if _world(group) == 1 else _all_reduce(
+        x, tdist.ReduceOp.MIN, group)
 
 
-def _gather_flat(x: torch.Tensor) -> torch.Tensor:
+def _gather_flat(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``x`` stacked on a new leading axis, rank order."""
-    world = _world()
+    world = _world(group)
     x = x.contiguous()
     out = torch.empty((world,) + tuple(x.shape), dtype=x.dtype,
                       device=x.device)
     gather_into = getattr(tdist, "all_gather_single", None) \
         or tdist.all_gather_into_tensor
-    gather_into(out.reshape(-1), x.reshape(-1))
+    gather_into(out.reshape(-1), x.reshape(-1), group=group)
     return out
 
 
 def all_gather(x: torch.Tensor, axis: int = 0,
-               tiled: bool = False) -> torch.Tensor:
+               tiled: bool = False, group=None) -> torch.Tensor:
     """Every rank's ``x``: stacked on a new axis ``axis``, or with
     ``tiled`` concatenated along ``axis``."""
-    stacked = x.unsqueeze(0) if _world() == 1 else _gather_flat(x)
+    stacked = x.unsqueeze(0) if _world(group) == 1 \
+        else _gather_flat(x, group)
     if tiled:
         return torch.cat(list(stacked.unbind(0)), dim=axis)
     return stacked.movedim(0, axis)
 
 
-def reduce_scatter(x: torch.Tensor, scatter_axis: int = 0) -> torch.Tensor:
+def reduce_scatter(x: torch.Tensor, scatter_axis: int = 0,
+                   group=None) -> torch.Tensor:
     """The sum over the ranks, cut into world chunks along
     ``scatter_axis``; this rank's chunk (rank r gets chunk r)."""
-    world = _world()
+    world = _world(group)
     if world == 1:
         return x
     if x.shape[scatter_axis] % world:
@@ -103,7 +129,7 @@ def reduce_scatter(x: torch.Tensor, scatter_axis: int = 0) -> torch.Tensor:
                       dtype=x.dtype, device=x.device)
     scatter = getattr(tdist, "reduce_scatter_single", None) \
         or tdist.reduce_scatter_tensor
-    scatter(out, moved)
+    scatter(out, moved, group=group)
     return out.movedim(0, scatter_axis)
 
 

@@ -253,6 +253,13 @@ class ParamSlot:
             return t.permute(_TO_OIHW)
         return t
 
+    def port_dim(self, jax_dim: int) -> int:
+        """The parameter's dimension that is dimension ``jax_dim`` of its
+        JAX leaf."""
+        if self.transpose:
+            return 1 - jax_dim
+        return self.perm[jax_dim] if self.perm is not None else jax_dim
+
 
 def jax_param_slots(model):
     """The JAX param tree of ``model`` with a :class:`ParamSlot` at each
@@ -261,6 +268,30 @@ def jax_param_slots(model):
     index = {id(p): i for i, p in enumerate(model.parameters())}
     return _jax_tree(model, lambda p, transpose, perm: ParamSlot(
         index[id(p)], transpose, perm))
+
+
+def spec_placements(spec, slot: ParamSlot, mesh_axes) -> tuple:
+    """The DTensor placements of the parameter at ``slot`` over a mesh
+    whose dimensions are named ``mesh_axes``, from the JAX
+    ``PartitionSpec`` ``spec`` of its JAX leaf: a mesh axis that the
+    spec names on JAX dimension j shards the parameter's dimension
+    ``slot.port_dim(j)`` (a Linear W's dimensions swap: JAX ``qkv.w``
+    ``P(None, "tp")`` on (D, 3D) is ``Shard(0)`` of the (3D, D)
+    ``weight``); every other mesh axis replicates. The one map from the
+    JAX package's layouts onto the port's parameters: the tensor and
+    FSDP layouts place parameters and optimizer states by it. A spec
+    axis the mesh lacks raises ``ValueError``."""
+    from torch.distributed.tensor import Replicate, Shard
+    placements = [Replicate() for _ in mesh_axes]
+    for jax_dim, axis in enumerate(tuple(spec)):
+        if axis is None:
+            continue
+        for name in (axis if isinstance(axis, tuple) else (axis,)):
+            if name not in mesh_axes:
+                raise ValueError(f"spec {tuple(spec)} names axis {name!r}, "
+                                 f"not one of the mesh's {tuple(mesh_axes)}")
+            placements[mesh_axes.index(name)] = Shard(slot.port_dim(jax_dim))
+    return tuple(placements)
 
 
 _STATS = ("mean", "var", "count")

@@ -15,10 +15,15 @@ the ranks), and reads the losses from the device only every
 and fast-forwards the data stream to it, so the continued losses are
 those of an uninterrupted run. ``--eval`` reports the held-out loss,
 ``--generate N`` greedy-decodes N tokens, ``--trace DIR`` writes a
-profile of steps 5-10.
+profile of steps 5-10. ``--fsdp`` trains in the ZeRO-3 layout over the
+ranks (``parallel/fsdp.py``: FSDP2, the JAX spec of
+``fsdp_param_specs``) when there is more than one; at world 1 it is the
+plain step, as in the JAX package. A checkpoint is then written from
+the gathered state (the same format 1), and ``--resume`` restores into
+the whole model before it is sharded.
 
-Not ported yet (each raises, naming its ROADMAP.md item): ``--fsdp``
-(Queue A item 5), ``--sharded-ckpt`` and ``--elastic`` (item 6).
+Not ported yet (each raises, naming its ROADMAP.md item):
+``--sharded-ckpt`` (Queue A item 5.4) and ``--elastic`` (item 6).
 
 Run (one rank per visible card; ``--device cpu`` on the CPU)::
 
@@ -48,8 +53,9 @@ from distributed_pytorch_tpu_torch.ops.flash_attention import \
     make_flash_attn_fn
 from distributed_pytorch_tpu_torch.ops.losses import (
     cross_entropy_per_example, fused_linear_cross_entropy)
-from distributed_pytorch_tpu_torch.parallel import (make_eval_step,
+from distributed_pytorch_tpu_torch.parallel import (fsdp, make_eval_step,
                                                     make_train_step)
+from distributed_pytorch_tpu_torch.runtime import context
 from distributed_pytorch_tpu_torch.runtime.context import map_tensors
 from distributed_pytorch_tpu_torch.runtime.device import default_generator
 from distributed_pytorch_tpu_torch.utils import MetricsLogger, profiler
@@ -92,7 +98,7 @@ def parse_args(argv=None):
                    help="Attention through the CUDA flash kernels.")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--fsdp", action="store_true",
-                   help="ZeRO-3 layout (not ported yet).")
+                   help="ZeRO-3 layout over the ranks (FSDP2; world > 1).")
     p.add_argument("--fused-ce", action="store_true",
                    help="stream the vocab projection through "
                         "fused_linear_cross_entropy (the logits never "
@@ -138,9 +144,8 @@ def parse_args(argv=None):
 
 
 def _unported(args) -> None:
-    for flag, on, item in (("--fsdp", args.fsdp, 5),
-                           ("--sharded-ckpt", args.sharded_ckpt, 6),
-                           ("--elastic", args.elastic, 6)):
+    for flag, on, item in (("--sharded-ckpt", args.sharded_ckpt, "5.4"),
+                           ("--elastic", args.elastic, "6")):
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP.md Queue A item {item})")
@@ -331,8 +336,29 @@ def main_worker(rank, world_size, argv=None, quiet=False, history=None,
         nll = per_example(m, x, y)
         return nll.mean(), {"nll": nll}
 
-    step_fn = make_train_step(loss_fn, optimizer)
+    # the ZeRO-3 layout only across ranks: at world 1 --fsdp is the plain
+    # step, as in the JAX example
+    use_fsdp = args.fsdp and is_distributed
+    if use_fsdp:
+        mesh = context.get_mesh()
+        specs = fsdp.fsdp_param_specs(model, world)
+        model, opt_state = fsdp.shard_model_and_opt(model, opt_state, mesh,
+                                                    specs)
+        step_fn = fsdp.make_fsdp_train_step(loss_fn, optimizer, mesh, specs)
+    else:
+        step_fn = make_train_step(loss_fn, optimizer)
+    record["fsdp"] = use_fsdp
     logger = MetricsLogger(args.log)
+
+    def save(at, extra, force=False):
+        """Stage a checkpoint of step ``at`` if due (or ``force``): the
+        model and its state, or under --fsdp their gathered trees (a
+        collective of every rank)."""
+        if not (force or ckpt_mgr.should_save(at)):
+            return False
+        params, state = ((fsdp.gather_state(model, opt_state)) if use_fsdp
+                         else (model, opt_state))
+        return ckpt_mgr.save(at, params, state, extra=extra, force=force)
     tokens_per_step = world * args.batch_size * args.seq_len
 
     def to_device(batch):
@@ -405,8 +431,7 @@ def main_worker(rank, world_size, argv=None, quiet=False, history=None,
                             f"step {step:>5}  loss {loss:.4f}")
                 if ckpt_mgr is not None:
                     t0 = time.perf_counter()
-                    if ckpt_mgr.save(step, model, opt_state,
-                                     extra={"epoch": epoch}):
+                    if save(step, {"epoch": epoch}):
                         last_saved = step
                         save_s.append(time.perf_counter() - t0)
                 step += 1
@@ -424,9 +449,8 @@ def main_worker(rank, world_size, argv=None, quiet=False, history=None,
     if ckpt_mgr is not None:
         if step > start_step and last_saved != step - 1:
             t0 = time.perf_counter()
-            ckpt_mgr.save(step - 1, model, opt_state,
-                          extra={"epoch": (step - 1) // len(loader)},
-                          force=True)
+            save(step - 1, {"epoch": (step - 1) // len(loader)},
+                 force=True)
             save_s.append(time.perf_counter() - t0)
         ckpt_mgr.wait()
         record["ckpt_saves"] = ckpt_mgr.saves
@@ -470,7 +494,9 @@ def main_worker(rank, world_size, argv=None, quiet=False, history=None,
         x0, _ = dataset[0]
         p_len = max(1, min(16, args.seq_len, model.max_seq - args.generate))
         prompt = np.asarray(x0)[:p_len][None]
-        toks = make_generate_fn(model, args.generate)(prompt)[0].cpu()
+        # under --fsdp the decode reads the whole parameters
+        with fsdp.gathered(model):
+            toks = make_generate_fn(model, args.generate)(prompt)[0].cpu()
         record["generated"] = toks.tolist()
         if not quiet:
             if args.text:

@@ -15,6 +15,14 @@ update to a few launches per step on the card.
 bfloat16 moments and computes another update. Here the moments are
 float32 whatever the parameter dtype, and the update is computed in
 float32 and cast back, as the JAX package does.
+
+Every state follows its parameter's placement: on a DTensor parameter
+(the sharded layouts of ``parallel/fsdp.py``) a param-shaped state is a
+DTensor on the same mesh with the same placements, so the update runs
+on the local shard alone, and a statistic over the whole parameter
+(adafactor's factored means and RMS, the global norm of
+``with_clipping``) is the global one, as the JAX package's global-view
+math gives. ``adamw_8bit`` refuses a DTensor parameter.
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ from typing import (Any, Callable, Iterable, List, NamedTuple, Optional,
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import zeros as _dtensor_zeros
 
 Tensors = Sequence[torch.Tensor]
 
@@ -32,6 +42,45 @@ class Optimizer(NamedTuple):
     init: Callable[[Iterable[torch.Tensor]], Any]
     update: Callable[[Tensors, Any, Tensors], Any]
     """update(grads, state, params) -> new_state; params updated in place"""
+
+
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """float32 zeros laid out like ``p``: on its device, and for a
+    DTensor on its mesh with its placements."""
+    return torch.zeros_like(p, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)
+
+
+def _replicated_zeros_f32(p: torch.Tensor, shape) -> torch.Tensor:
+    """float32 zeros of ``shape`` on ``p``'s device; for a DTensor ``p``
+    a DTensor replicated over its mesh (a statistic reduced over a
+    dimension that may be sharded)."""
+    if isinstance(p, DTensor):
+        mesh = p.device_mesh
+        return _dtensor_zeros(shape, dtype=torch.float32, device_mesh=mesh,
+                              placements=[Replicate()] * mesh.ndim)
+    return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+
+def _placed_like(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``like``'s placement (a DTensor redistributed; a plain
+    tensor as it is): a reduction over a sharded dimension comes back
+    partial, and the state it updates is not."""
+    if isinstance(x, DTensor) and tuple(x.placements) != tuple(
+            like.placements):
+        return x.redistribute(like.device_mesh, like.placements)
+    return x
+
+
+def _foreach_copy(dst, src) -> None:
+    """``torch._foreach_copy_``; one ``copy_`` per tensor where the list
+    holds DTensors, which have no multi-tensor copy."""
+    dst, src = list(dst), list(src)
+    if any(isinstance(d, DTensor) for d in dst):
+        for d, s in zip(dst, src):
+            d.copy_(s)
+    else:
+        torch._foreach_copy_(dst, src)
 
 
 def _with_grads(grads, *lists):
@@ -83,11 +132,8 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     def init(params):
         params = list(params)
-
-        def zeros():
-            return [torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for p in params]
-        return AdamWState(step=0, mu=zeros(), nu=zeros())
+        return AdamWState(step=0, mu=[_zeros_f32(p) for p in params],
+                          nu=[_zeros_f32(p) for p in params])
 
     @torch.no_grad()
     def update(grads, state, params):
@@ -115,7 +161,7 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         torch._foreach_mul_(upd, lr)
         torch._foreach_div_(upd, den)
         torch._foreach_sub_(pf, upd)
-        torch._foreach_copy_(params, pf)
+        _foreach_copy(params, pf)
         return AdamWState(step=step, mu=state.mu, nu=state.nu)
 
     return Optimizer(init, update)
@@ -141,25 +187,26 @@ def adafactor(lr: Optional[float] = None, *, decay_pow: float = 0.8,
     min(1e-2, 1/sqrt(t)) * max(eps2, RMS(param)) (``scale_by_param``
     defaults to True exactly then). Decoupled weight decay as in
     :func:`adamw`; state in float32. An empty (0,) tensor stands where a
-    parameter has no entry of that kind."""
+    parameter has no entry of that kind. On a DTensor parameter the
+    factored moments are replicated over its mesh (the JAX package's
+    ``opt_state_specs`` replicates them too) and hold the global
+    means; a full moment follows the parameter's placement."""
     if scale_by_param is None:
         scale_by_param = lr is None
 
     def init(params):
         vr, vc, v = [], [], []
         for p in params:
-            empty = torch.zeros((0,), dtype=torch.float32, device=p.device)
+            empty = _replicated_zeros_f32(p, (0,))
             if p.dim() >= 2:
-                vr.append(torch.zeros(p.shape[:-1], dtype=torch.float32,
-                                      device=p.device))
-                vc.append(torch.zeros(p.shape[:-2] + p.shape[-1:],
-                                      dtype=torch.float32, device=p.device))
+                vr.append(_replicated_zeros_f32(p, p.shape[:-1]))
+                vc.append(_replicated_zeros_f32(p, p.shape[:-2]
+                                                + p.shape[-1:]))
                 v.append(empty)
             else:
                 vr.append(empty)
                 vc.append(empty.clone())
-                v.append(torch.zeros(p.shape, dtype=torch.float32,
-                                     device=p.device))
+                v.append(_zeros_f32(p))
         return AdafactorState(step=0, vr=vr, vc=vc, v=v)
 
     def rms(x):
@@ -182,8 +229,10 @@ def adafactor(lr: Optional[float] = None, *, decay_pow: float = 0.8,
             gf = g.to(torch.float32)
             g2 = gf * gf + eps1
             if p.dim() >= 2:
-                vr.mul_(beta2).add_((1 - beta2) * g2.mean(dim=-1))
-                vc.mul_(beta2).add_((1 - beta2) * g2.mean(dim=-2))
+                vr.mul_(beta2).add_(_placed_like(
+                    (1 - beta2) * g2.mean(dim=-1), vr))
+                vc.mul_(beta2).add_(_placed_like(
+                    (1 - beta2) * g2.mean(dim=-2), vc))
                 r = vr / vr.mean(dim=-1, keepdim=True)
                 u = gf * torch.rsqrt(r)[..., None] \
                     * torch.rsqrt(vc)[..., None, :]
@@ -281,11 +330,21 @@ def adamw_8bit(lr: float, b1: float = 0.9, b2: float = 0.999,
     second in the log domain (``_q8_quant_log``), ~1/4 of
     :func:`adamw`'s state bytes. Each step dequantizes, applies the
     float32 AdamW arithmetic and requantizes, so the trajectory tracks
-    :func:`adamw` closely but not exactly."""
+    :func:`adamw` closely but not exactly.
+
+    A DTensor (sharded) parameter raises ``NotImplementedError``: the
+    blocks run over the whole flattened parameter, and a shard's blocks
+    would be others."""
 
     def init(params):
         mu, nu = [], []
         for p in params:
+            if isinstance(p, DTensor):
+                raise NotImplementedError(
+                    "adamw_8bit on a sharded (DTensor) parameter is not "
+                    "ported yet: its 256-element blocks run over the whole "
+                    "flattened parameter, and a shard's blocks would differ "
+                    "(ROADMAP.md Queue A item 5.7)")
             z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             mu.append(_q8_quant(z))
             nu.append(_q8_quant_log(z))

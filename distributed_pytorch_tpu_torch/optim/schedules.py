@@ -21,8 +21,9 @@ from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
-from . import Optimizer, _with_grads
+from . import Optimizer, _foreach_copy, _with_grads, _zeros_f32
 
 Schedule = Callable[[int], float]
 
@@ -125,7 +126,7 @@ def with_schedule(opt_factory: Callable[[float], Optimizer],
         torch._foreach_mul_(delta, lr)
         new = torch._foreach_add([b.to(torch.float32) for b in before],
                                  delta)
-        torch._foreach_copy_(moved, new)
+        _foreach_copy(moved, new)
         return ScheduledState(step=state.step + 1, inner=inner)
 
     return Optimizer(init, _inherit(update, unit))
@@ -133,9 +134,13 @@ def with_schedule(opt_factory: Callable[[float], Optimizer],
 
 def global_norm(tensors: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
     """The L2 norm of all the tensors together, in float32 (a 0-d tensor
-    on their device); ``None`` entries are skipped."""
+    on their device); ``None`` entries are skipped. A DTensor counts
+    whole: its norm is taken over every shard."""
     ts = [t for t in tensors if t is not None]
     norms = torch._foreach_norm(ts, 2, dtype=torch.float32)
+    if any(isinstance(n, DTensor) for n in norms):
+        norms = [n.full_tensor() if isinstance(n, DTensor) else n
+                 for n in norms]
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -191,9 +196,8 @@ def accumulate(opt: Optimizer, every: int) -> Optimizer:
 
     def init(params):
         params = list(params)
-        return AccumState(count=0, acc=[torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device) for p in params],
-            inner=opt.init(params))
+        return AccumState(count=0, acc=[_zeros_f32(p) for p in params],
+                          inner=opt.init(params))
 
     @torch.no_grad()
     def update(grads, state, params):
@@ -280,7 +284,7 @@ def with_master_f32(opt: Optimizer) -> Optimizer:
     def update(grads, state, params):
         grads32 = [None if g is None else g.to(torch.float32) for g in grads]
         inner = opt.update(grads32, state.inner, state.master)
-        torch._foreach_copy_(list(params), state.master)
+        _foreach_copy(list(params), state.master)
         return MasterState(master=state.master, inner=inner)
 
     return Optimizer(init, _inherit(update, opt))

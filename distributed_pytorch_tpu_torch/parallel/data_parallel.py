@@ -63,19 +63,22 @@ class StatefulStepOutput(NamedTuple):
 
 
 @contextlib.contextmanager
-def mp_cast_params(model: nn.Module) -> Iterator[nn.Module]:
-    """Inside the block, every float32 parameter of ``model`` reads as
-    its bfloat16 cast; other parameters and all buffers are untouched.
+def mp_cast_params(model: nn.Module, only=None) -> Iterator[nn.Module]:
+    """Inside the block, every float32 parameter of ``model`` (or of
+    those in ``only``, when given) reads as its bfloat16 cast; other
+    parameters and all buffers are untouched.
 
     The cast is a differentiable op of the float32 master parameter, so
     a backward run inside the block (where a remat policy recomputes
     the forward from the same casts) leaves float32 gradients on the
     masters, which stay what the optimizer updates. A parameter shared
     by several modules is cast once."""
+    keep = None if only is None else {id(p) for p in only}
     casts, swapped = {}, []
     for mod in model.modules():
         for name, p in mod._parameters.items():
-            if p is not None and p.dtype == torch.float32:
+            if p is not None and p.dtype == torch.float32 and (
+                    keep is None or id(p) in keep):
                 if id(p) not in casts:
                     casts[id(p)] = p.to(torch.bfloat16)
                 swapped.append((mod, name, p))
@@ -88,11 +91,12 @@ def mp_cast_params(model: nn.Module) -> Iterator[nn.Module]:
             mod._parameters[name] = p
 
 
-def _average_grads(grads, world: int) -> None:
-    """Average ``grads`` over the ranks in place: one float32 flat
-    bucket, one ``all_reduce`` (sum), divided by ``world``."""
+def _average_grads(grads, world: int, group=None) -> None:
+    """Average ``grads`` over the ranks (of ``group``, default all) in
+    place: one float32 flat bucket, one ``all_reduce`` (sum), divided by
+    ``world``."""
     flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
-    torch.distributed.all_reduce(flat)
+    torch.distributed.all_reduce(flat, group=group)
     flat /= world
     _scatter_flat(flat, grads)
 
@@ -113,14 +117,18 @@ def _wire_format(grad_reduce: str) -> str:
     return "quant" if grad_reduce in ("quant", "int8") else grad_reduce
 
 
-def forward_backward(loss_fn: Callable, mixed_precision: str) -> Callable:
+def forward_backward(loss_fn: Callable, mixed_precision: str,
+                     cast: Optional[Callable] = None) -> Callable:
     """``run(model, batch) -> (params, grads, loss, metrics)``: clears
     the gradients, runs the forward (on the bf16 casts under
-    ``mixed_precision="bf16"``) and the backward. ``grads`` lines up with
-    ``params`` (``model.parameters()``): a zero tensor for a trainable
-    parameter the loss does not reach, ``None`` for a frozen one."""
-    cast = mp_cast_params if mixed_precision == "bf16" \
-        else contextlib.nullcontext
+    ``mixed_precision="bf16"``; ``cast(model)``, a context manager, in
+    place of :func:`mp_cast_params` where given) and the backward.
+    ``grads`` lines up with ``params`` (``model.parameters()``): a zero
+    tensor for a trainable parameter the loss does not reach, ``None``
+    for a frozen one."""
+    if cast is None or mixed_precision != "bf16":
+        cast = mp_cast_params if mixed_precision == "bf16" \
+            else contextlib.nullcontext
 
     def run(model, batch):
         params = list(model.parameters())

@@ -18,6 +18,19 @@ group is instead the native TCP process group of ``native/dpxhost.cpp``
 run on it. A host rank's device is chosen as any other rank's:
 ``cuda:r`` unless the rank was started for the CPU.
 
+The multi-axis mesh (JAX ``context.py:197-307``): :func:`init_mesh`
+lays the live group's ranks out as a ``DeviceMesh`` over the axes
+:data:`MESH_AXES` (``dp``, ``tp``, ``sp``, ``pp``, ``ep``, rank order
+row-major as the JAX package reshapes its devices), on ``cuda`` or, for
+a gloo group of CPU ranks, ``cpu``; :func:`get_mesh` returns it, and
+:func:`batch_sharding` / :func:`replicated_sharding` are the placements
+over its ``dp`` dimension. Unlike the JAX package, where ``get_world_size()``
+becomes the ``dp`` axis after ``init_mesh`` (``:220``), the port's
+``get_world_size()`` and ``get_rank()`` stay the process group's: a rank
+is a process, the helper API's collectives run over every rank, and a
+rank's place on an axis is ``get_mesh()[axis].get_local_rank()`` (the
+data of a dp x tp mesh is split over ``dp`` by the caller).
+
 Every query is safe before ``init_process_group``: rank 0, world 1, no
 backend. ``get_device`` then names the card, and raises where there is
 none: an entry point asks for the CPU explicitly, it never falls back to
@@ -36,10 +49,17 @@ from . import env
 from .device import resolve_device
 
 
+#: The mesh axes, in order (JAX ``context.py``): data, tensor, sequence,
+#: pipeline and expert parallelism.
+MESH_AXES = ("dp", "tp", "sp", "pp", "ep")
+DATA_AXIS = "dp"
+
+
 @dataclasses.dataclass
 class _State:
     device: Optional[torch.device] = None  # this rank's, while a group lives
     host_comm: Any = None                  # the native group, if "host"
+    mesh: Any = None                       # init_mesh's DeviceMesh
 
 
 _state = _State()
@@ -118,6 +138,7 @@ def destroy_process_group() -> None:
     else:
         tdist.destroy_process_group()
     _state.device = None
+    _state.mesh = None
 
 
 def abort_process_group() -> None:
@@ -132,6 +153,7 @@ def abort_process_group() -> None:
     elif tdist.is_available() and tdist.is_initialized():
         tdist.destroy_process_group()
     _state.device = None
+    _state.mesh = None
 
 
 def get_host_comm():
@@ -170,6 +192,72 @@ def get_device() -> torch.device:
         return _state.device
     resolve_device(None)
     return torch.device("cuda", get_rank())
+
+
+def init_mesh(dp: int = 1, tp: int = 1, sp: int = 1, pp: int = 1,
+              ep: int = 1, backend: Optional[str] = None):
+    """Lay the live group's ranks out as a ``DeviceMesh`` of shape
+    ``(dp, tp, sp, pp, ep)`` named by :data:`MESH_AXES` (through
+    ``init_device_mesh``) and make it :func:`get_mesh`'s; returns it.
+
+    ``backend`` is the mesh's device type: ``None`` takes this rank's
+    (``cuda``, or ``cpu`` in a gloo group of CPU ranks). The axes must
+    multiply to the world size (the JAX package's ``ValueError``). A
+    ``"host"`` group has no torch.distributed group to lay out and is
+    refused; so is a world of more than one rank with no group."""
+    from torch.distributed.device_mesh import init_device_mesh
+    world = get_world_size()
+    need = dp * tp * sp * pp * ep
+    if need != world:
+        raise ValueError(
+            f"mesh {dp}x{tp}x{sp}x{pp}x{ep}={need} does not match "
+            f"{world} visible devices")
+    if _state.host_comm is not None:
+        raise ValueError("init_mesh needs a torch.distributed group (nccl "
+                         "or gloo), not the native host group")
+    if not is_initialized():
+        raise RuntimeError("init_mesh needs a live process group: call "
+                           "init_process_group first (get_mesh() gives a "
+                           "trivial mesh without one)")
+    device_type = backend or get_device().type
+    _state.mesh = init_device_mesh(device_type, (dp, tp, sp, pp, ep),
+                                   mesh_dim_names=MESH_AXES)
+    return _state.mesh
+
+
+def get_mesh():
+    """The mesh of :func:`init_mesh`. In a torch.distributed group with
+    none, the 1-D ``dp`` mesh over every rank (the JAX package's
+    ``init_process_group`` mesh), made at the first call; outside one (or
+    in a ``"host"`` group), a trivial one-rank ``dp`` mesh with no group
+    behind it."""
+    if _state.mesh is not None:
+        return _state.mesh
+    if is_initialized() and _state.host_comm is None:
+        from torch.distributed.device_mesh import init_device_mesh
+        _state.mesh = init_device_mesh(get_device().type,
+                                       (get_world_size(),),
+                                       mesh_dim_names=(DATA_AXIS,))
+        return _state.mesh
+    from torch.distributed.device_mesh import DeviceMesh
+    device_type = (_state.device.type if _state.device is not None
+                   else "cuda" if torch.cuda.is_available() else "cpu")
+    return DeviceMesh(device_type, [0], mesh_dim_names=(DATA_AXIS,),
+                      _init_backend=False, _rank=0)
+
+
+def batch_sharding() -> tuple:
+    """The placement over the ``dp`` dimension that splits axis 0 of a
+    batch across it."""
+    from torch.distributed.tensor import Shard
+    return (Shard(0),)
+
+
+def replicated_sharding() -> tuple:
+    """The placement over the ``dp`` dimension that replicates a value
+    on every rank (DDP's parameters)."""
+    from torch.distributed.tensor import Replicate
+    return (Replicate(),)
 
 
 def map_tensors(fn: Callable, tree: Any) -> Any:

@@ -49,6 +49,22 @@ def _failure_meta(exc: BaseException) -> Optional[dict]:
     return None
 
 
+#: characters of a traceback a failing rank queues for the parent (its
+#: stderr gets all of it): a report must fit the pipe with room for the
+#: other ranks', or its writer blocks until the parent reads
+REPORT_CHARS = 8192
+
+
+def _bounded(tb: str) -> str:
+    """``tb`` cut to :data:`REPORT_CHARS`: its head and its tail (where
+    the exception is) around a note of what was cut."""
+    if len(tb) <= REPORT_CHARS:
+        return tb
+    head, tail = REPORT_CHARS // 4, REPORT_CHARS * 3 // 4
+    return (f"{tb[:head]}\n[... {len(tb) - head - tail} characters cut; "
+            f"the rank's stderr has them ...]\n{tb[-tail:]}")
+
+
 def _worker_shim(rank: int, world_size: int, rank_env: dict,
                  worker_fn: Callable, args: tuple, err_q) -> None:
     try:
@@ -60,7 +76,7 @@ def _worker_shim(rank: int, world_size: int, rank_env: dict,
             code = 0                  # a rank that ends on purpose
         else:
             tb = traceback.format_exc()
-            err_q.put((rank, tb, _failure_meta(exc)))
+            err_q.put((rank, _bounded(tb), _failure_meta(exc)))
             sys.stderr.write(tb)
             code = exc.code if isinstance(exc, SystemExit) and isinstance(
                 exc.code, int) else 1

@@ -57,6 +57,7 @@ class ProcessSupervisor:
         self.procs = list(procs)
         self.err_q = err_q
         self.grace_s = grace_s
+        self._reports: List = []    # what the ranks queued, in order
 
     def _first_failure(self) -> Optional[int]:
         for p in self.procs:
@@ -64,17 +65,29 @@ class ProcessSupervisor:
                 return p.exitcode
         return None
 
+    def _collect_ready(self) -> None:
+        """Read the reports already queued, while their writers live: a
+        rank blocked writing a report into a full pipe is never
+        terminated mid-write, which would leave the supervisor waiting
+        on the rest of the message."""
+        if self.err_q is None:
+            return
+        while True:
+            try:
+                self._reports.append(self.err_q.get_nowait())
+            except _queue.Empty:
+                return
+
     def _drain_errors(self) -> List:
-        out = []
         if self.err_q is not None:
             while True:
                 # a bounded get: a report a dying child never finished
                 # writing cannot hang the supervisor
                 try:
-                    out.append(self.err_q.get(timeout=0.25))
+                    self._reports.append(self.err_q.get(timeout=0.25))
                 except _queue.Empty:
                     break
-        return out
+        return list(self._reports)
 
     def terminate_all(self) -> None:
         for p in self.procs:
@@ -95,6 +108,7 @@ class ProcessSupervisor:
         deadline = None if timeout_s is None else \
             time.monotonic() + timeout_s
         while any(p.exitcode is None for p in self.procs):
+            self._collect_ready()
             if self._first_failure() is not None:
                 break
             if deadline is not None and time.monotonic() > deadline:
@@ -114,6 +128,7 @@ class ProcessSupervisor:
         settle = time.monotonic() + _SETTLE_S
         while (time.monotonic() < settle
                and any(p.exitcode is None for p in self.procs)):
+            self._collect_ready()
             time.sleep(_POLL_S)
         self.terminate_all()
         failures = self._drain_errors()

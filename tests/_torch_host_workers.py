@@ -217,6 +217,12 @@ def clean_exit_worker(rank, world, out_dir):
     sys.exit(None if rank == 0 else 0)
 
 
+def long_failure_worker(rank, world, n_chars):
+    """Every rank fails with an exception whose message is ``n_chars``
+    long (a DTensor sharding error prints ~40 KB), with no group."""
+    raise RuntimeError(f"rank {rank} failed: " + "x" * n_chars)
+
+
 # -- the gradient wire of make_train_step ---------------------------------
 
 MLP = dict(d_in=16, d_hid=32, d_out=4, batch=8)

@@ -257,6 +257,20 @@ def test_a_rank_that_exits_0_ends_cleanly(tmp_path, backend):
                                                           "rank1.json"]
 
 
+def test_long_failure_reports_do_not_hang_the_launch():
+    """Four ranks fail at once, each with a 100,000-character message
+    (four such reports overflow the 64 KiB pipe of the report queue):
+    the launch raises one rank's traceback, cut to ``REPORT_CHARS`` with
+    its tail kept, within the deadline; it hung before the cut."""
+    t0 = time.monotonic()
+    with pytest.raises(WorkerFailure, match="characters cut") as info:
+        launch_cpu_ranks(hw.long_failure_worker, 4, 100_000, timeout_s=60)
+    assert time.monotonic() - t0 < 60
+    assert info.value.exitcode == 1
+    assert str(info.value).rstrip().endswith("x" * 100)
+    assert len(str(info.value)) < 2 * tmp_mod.REPORT_CHARS
+
+
 def test_supervisor_deadline_terminates_a_hung_rank():
     proc = mp.get_context("spawn").Process(target=time.sleep, args=(120,))
     proc.start()

@@ -77,7 +77,9 @@ def test_importing_the_port_loads_no_jax():
             "distributed_pytorch_tpu_torch.comm.sanitizer, "
             "distributed_pytorch_tpu_torch.optim.sharded.host, "
             "distributed_pytorch_tpu_torch.optim.sharded.spmd, "
-            "distributed_pytorch_tpu_torch.parallel.data_parallel\n"
+            "distributed_pytorch_tpu_torch.parallel.data_parallel, "
+            "distributed_pytorch_tpu_torch.parallel.fsdp, "
+            "distributed_pytorch_tpu_torch.parallel.tensor\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
             "m.startswith(('jax.', 'jaxlib.')) or "
             "m == 'distributed_pytorch_tpu' or "

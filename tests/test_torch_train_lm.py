@@ -18,7 +18,8 @@ summation order only; seen 2.5e-7):
   the JAX run's continued losses (rtol 1e-5);
 - ``--fused-ce --clip-norm --warmup-steps`` over ``--text`` against the
   JAX example (rtol 1e-5); ``--trace`` and ``--log`` write their files;
-  ``--fsdp``/``--sharded-ckpt``/``--elastic`` raise naming their items.
+  ``--sharded-ckpt``/``--elastic`` raise naming their items (``--fsdp``
+  is ported: ``test_torch_fsdp.py``).
 
 Serial run time ~31 s.
 """
@@ -191,9 +192,9 @@ def test_trace_log_and_the_done_line(tmp_path, capsys):
     assert rec["prefetch_worker_ms_per_batch"] > 0
 
 
-@pytest.mark.parametrize("flag,item", [(["--fsdp"], "item 5"),
-                                       (["--sharded-ckpt"], "item 6"),
-                                       (["--elastic", "2"], "item 6")])
+@pytest.mark.parametrize("flag,item", [
+    pytest.param(["--sharded-ckpt"], "item 5.4", id="flag1-item 6"),
+    pytest.param(["--elastic", "2"], "item 6", id="flag2-item 6")])
 def test_unported_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         train_transformer_lm.main_worker(0, 1, ARGS + CPU + flag,

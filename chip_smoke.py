@@ -230,12 +230,43 @@ non-zero at once:
               dense loss (value and gradient, 1e-5 x max(1, |ref|)) and
               ``make_vocab_parallel_ce_fn`` of the model's hidden states
               against the dense loss of its logits.
+30. front_door (after fsdp) — FLAGSHIP through ``front_door.make_step``
+              in a one-rank NCCL group over ``init_mesh(dp=1)``:
+              ``specs=None``, ZeRO-3 / ZeRO-2 / ZeRO-1 as ``StepSpecs``,
+              ``weight_update="sharded"`` and ``FROM_INPUTS`` (replicated
+              DTensor parameters, the batch a DTensor over dp, the flash
+              kernel on the local shards), 1 warm-up and 5 timed steps
+              each: step ms, one step's device busy ms, one build per
+              arm, 12/12/12 flash launches per step, finite falling
+              losses within 2e-3 relative of ``train``'s; a second
+              identical request returns the same step with its builds
+              unchanged; the handoff chain — the dp step's
+              ``out_shardings`` pinned by ``make_eval_step(like=)`` (two
+              eval passes over the batch) and by an ``InferenceEngine``
+              with ``EngineConfig(param_shardings=...)`` answering 2
+              greedy requests (prompts 600 and 1000: a flash prefill
+              each) — with zero ``redistribute`` / ``full_tensor``
+              calls; the ZeRO-3 step's tree of shardings pinned by its
+              eval (the FSDP2 forward); a CPU copy and a plain model
+              against the ZeRO-3 tree refused with ``HandoffMismatch``;
+31. ckpt_sharded — FLAGSHIP's parameters and adamw state (after two
+              steps) saved by ``CheckpointManager(sharded=True,
+              param_specs=fsdp_param_specs(model, 4), axis_sizes={"dp":
+              4}, async_save=True)`` through one writer (a grid of 4 on
+              disk from one card): the save call's blocking seconds, the
+              IO thread's write seconds, bytes, shards; the restore into
+              a fresh model and state (seconds, bytes, every member's
+              CRC checked, bit-for-bit equal), and a ``Target`` restore
+              at dp = 2 rank 0 reading about half the bytes.
+``lm_trainer`` also runs the save / resume pair with ``--sharded-ckpt``
+(runs 5 and 6): the resumed losses must equal run 3's exactly.
 
 Then the ``kernels`` line (each kernel's design, ``wgmma+tma`` or
 ``scalar_fma``, as its bf16 path runs it; the forward at both shapes and
 its launches in ``serve_kvq``, ``serve_spec``, ``serve_int8``,
 ``serve_disagg`` and ``serve_fleet``; every row's launches per step in
-each ``host_ddp`` and ``fsdp`` arm), the nvidia-smi line and, last, the
+each ``host_ddp``, ``fsdp`` and ``front_door`` arm), the nvidia-smi
+line and, last, the
 result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -243,6 +274,7 @@ result line
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -1290,6 +1322,371 @@ def phase_fsdp(torch, port, tflash, device, train_losses, train_step_ms):
     return {name: rec["launches_per_step"] for name, rec in arms.items()}
 
 
+FRONT_DOOR_TIMED_STEPS = 5
+# the handoff chain's engine: 2 greedy requests of FLAGSHIP's vocabulary
+# (prompt lengths whose prefill bucket, 1024, runs the flash kernel)
+HANDOFF_PROMPTS, HANDOFF_NEW = (600, 1000), 8
+
+
+def count_reshards(torch):
+    """Wrap ``DTensor.redistribute`` and ``DTensor.full_tensor`` with
+    counters; returns (counts, restore)."""
+    from torch.distributed.tensor import DTensor
+    counts = {"redistribute": 0, "full_tensor": 0}
+    saved = {n: getattr(DTensor, n) for n in counts}
+
+    def wrap(name, fn):
+        def run(self, *a, **kw):
+            counts[name] += 1
+            return fn(self, *a, **kw)
+        return run
+    for n, fn in saved.items():
+        setattr(DTensor, n, wrap(n, fn))
+
+    def restore():
+        for n, fn in saved.items():
+            setattr(DTensor, n, fn)
+    return counts, restore
+
+
+def front_door_arm(torch, port, tflash, device, build, tokens, keep=False):
+    """1 warm-up and FRONT_DOOR_TIMED_STEPS timed steps of FLAGSHIP
+    (``train``'s seeded weights and batch) through the step that
+    ``build(model) -> (step, state, batch)`` makes: what the phase prints
+    about the arm, and with ``keep`` the model, step and state too."""
+    # the previous arm's (and phase's) garbage is collected here, not
+    # inside this arm's timed window
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_arm = time.perf_counter()
+    model = port.TransformerLM(
+        dtype=torch.bfloat16, device=device,
+        attn_fn=tflash.make_flash_attn_fn(),
+        generator=torch.Generator(device=device).manual_seed(0), **TRAIN)
+    step, state0, batch = build(model, tokens)
+    state = [state0]
+
+    def run():
+        out = step(model, state[0], batch)
+        state[0] = out.opt_state
+        return out.loss.reshape(-1)
+
+    torch.cuda.synchronize()
+    tflash.reset_launch_counts()
+    losses = [run()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [run() for _ in range(FRONT_DOOR_TIMED_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / FRONT_DOOR_TIMED_STEPS * 1e3
+    n = 1 + FRONT_DOOR_TIMED_STEPS
+    per_step = {k: v / n for k, v in tflash.LAUNCHES.items()}
+    t_busy = time.perf_counter()
+    busy = device_busy_ms(torch, run)
+    rec = dict(wall_s=time.perf_counter() - t_arm,
+               profile_s=time.perf_counter() - t_busy,
+               step_ms=step_ms, device_busy_ms=busy,
+               device_busy_share=(busy / step_ms if busy else None),
+               launches_per_step=per_step, trace_counts={
+                   str(k): v for k, v in step.trace_counts.items()},
+               losses=torch.cat(losses).float().tolist())
+    if keep:
+        return rec, (model, step, state[0])
+    del model, state, step
+    torch.cuda.empty_cache()
+    return rec, None
+
+
+def phase_front_door(torch, port, tflash, device, train_losses,
+                     train_step_ms):
+    """FLAGSHIP through ``front_door.make_step`` in a one-rank NCCL group:
+    ``specs=None``, ZeRO-3/2/1 as ``StepSpecs``, ``weight_update=
+    "sharded"`` and ``FROM_INPUTS`` (replicated DTensor parameters, the
+    batch a DTensor over dp: the flash kernel on the local shards), each
+    against ``train``'s losses; the builder cache; the train -> eval ->
+    serve-admit handoff chain with its reshards counted; a mis-placed
+    model refused. Returns each arm's flash launches per step."""
+    from distributed_pytorch_tpu_torch.optim import adamw
+    from distributed_pytorch_tpu_torch.parallel import (
+        FROM_INPUTS, HandoffMismatch, StepSpecs, front_door, fsdp,
+        handoff_shardings, make_step, shard_batch_spec, shard_params,
+        verify_handoff)
+    from distributed_pytorch_tpu_torch.parallel.tensor import (
+        P, replicated_specs)
+    from distributed_pytorch_tpu_torch.runtime import context, env
+    from distributed_pytorch_tpu_torch.runtime.launcher import find_free_port
+    from distributed_pytorch_tpu_torch.serve import (EngineConfig,
+                                                     InferenceEngine,
+                                                     SamplingParams)
+    env.set("DPX_MASTER_PORT", find_free_port())
+    context.init_process_group(0, 1)
+    front_door.cache_clear()
+    kept = {}
+    try:
+        mesh = context.init_mesh(dp=1)
+        tokens = train_tokens(torch, 6, TRAIN_BATCH, device)
+
+        def plain(**kw):
+            def build(model, batch):
+                opt = adamw(TRAIN_LR)
+                step = make_step(lm_loss, opt, **kw)
+                state = (step.init_opt_state(model)
+                         if kw.get("weight_update") == "sharded"
+                         else opt.init(model.parameters()))
+                return step, state, batch
+            return build
+
+        def ladder(rung):
+            def build(model, batch):
+                opt = adamw(TRAIN_LR)
+                p = fsdp.fsdp_param_specs(model, 1)
+                rep = replicated_specs(model)
+                specs = {"zero3": StepSpecs(params=p),
+                         "zero2": StepSpecs(params=rep, opt=p, grads=p),
+                         "zero1": StepSpecs(params=rep, opt=p,
+                                            grads=rep)}[rung]
+                step = make_step(lm_loss, opt, mesh=mesh, specs=specs)
+                return step, opt.init(model.parameters()), batch
+            return build
+
+        def from_inputs(model, batch):
+            shard_params(model, replicated_specs(model), mesh)
+            opt = adamw(TRAIN_LR)
+            step = make_step(lm_loss, opt, specs=FROM_INPUTS)
+            return (step, opt.init(model.parameters()),
+                    shard_batch_spec(batch, mesh, P("dp")))
+
+        builds = {"dp": plain(), "zero3": ladder("zero3"),
+                  "zero2": ladder("zero2"), "zero1": ladder("zero1"),
+                  "sharded": plain(weight_update="sharded"),
+                  "from_inputs": from_inputs}
+        arms = {}
+        for name, build in builds.items():
+            arms[name], k = front_door_arm(torch, port, tflash, device,
+                                           build, tokens,
+                                           keep=name in ("dp", "zero3"))
+            if k is not None:
+                kept[name] = k
+
+        # the builder cache: the same request, the same step, no build
+        model, step, state = kept["dp"]
+        before = step.compiles
+        again = make_step(lm_loss, step.config[2])
+        cache = dict(same_object=again is step,
+                     compiles_before=before, compiles_after=again.compiles,
+                     entries=len(front_door.cache_info()))
+
+        # train -> eval -> serve admit, nothing resharded
+        t_chain = time.perf_counter()
+        counts, restore = count_reshards(torch)
+        try:
+            tflash.reset_launch_counts()
+            p_sh = handoff_shardings(step)
+            verify_handoff(model, p_sh)
+
+            def nll(m, b):
+                from distributed_pytorch_tpu_torch.ops.losses import \
+                    cross_entropy_per_example
+                return cross_entropy_per_example(m(b[:, :-1]),
+                                                 b[:, 1:]).mean(-1)
+            ev = front_door.make_eval_step(nll, like=step)
+            t0 = time.perf_counter()
+            ev_nll = ev(model, tokens)
+            ev_nll = ev(model, tokens)
+            torch.cuda.synchronize()
+            eval_ms = (time.perf_counter() - t0) / 2 * 1e3
+            eng = InferenceEngine(model, EngineConfig(
+                n_slots=2, max_len=TRAIN["max_seq"], param_shardings=p_sh))
+            rng = np.random.default_rng(21)
+            with eng:
+                handles = [eng.submit(
+                    rng.integers(0, TRAIN["vocab"], (n,)).astype(np.int32),
+                    SamplingParams(max_new_tokens=HANDOFF_NEW))
+                    for n in HANDOFF_PROMPTS]
+                streams = [len(h.result(timeout=300)) for h in handles]
+            chain_launches = dict(tflash.LAUNCHES)
+            refused = []
+            misplaced = {n: p.detach().cpu()
+                         for n, p in list(model.named_parameters())[:2]}
+            try:
+                verify_handoff(misplaced, p_sh)
+            except HandoffMismatch as e:
+                refused.append(("cpu_copy", e.path))
+            # the ZeRO-3 consumer: its eval pinned to the step's tree
+            z_model, z_step, _ = kept["zero3"]
+            pinned = handoff_shardings(z_step)
+            z_ev = front_door.make_eval_step(nll, like=z_step)
+            z_nll = z_ev(z_model, tokens)
+            try:
+                InferenceEngine(model, EngineConfig(
+                    n_slots=2, max_len=TRAIN["max_seq"],
+                    param_shardings=pinned))
+            except HandoffMismatch as e:
+                refused.append(("plain_vs_zero3", e.path))
+        finally:
+            restore()
+        chain = dict(
+            param_shardings=str(p_sh), eval_ms=eval_ms,
+            eval_traces=ev.trace_counts["n"],
+            eval_shape=list(ev_nll.shape),
+            eval_nll_mean=float(ev_nll.float().mean()),
+            zero3_eval_nll_mean=float(z_nll.float().mean()),
+            zero3_pinned_placements=sorted({str(s.placements)
+                                            for s in pinned.values()}),
+            zero3_eval_pinned_is=z_ev.in_shardings["params"] is pinned,
+            streams=streams, launches=chain_launches,
+            reshards=dict(counts), refused=refused,
+            wall_s=time.perf_counter() - t_chain)
+        del model, step, state, kept, z_model, z_step, eng
+        torch.cuda.empty_cache()
+    finally:
+        front_door.cache_clear()
+        context.destroy_process_group()
+    ref = train_losses[:1 + FRONT_DOOR_TIMED_STEPS]
+    for rec in arms.values():
+        rec["max_rel_loss_diff_vs_train"] = max(
+            abs(a - b) / abs(b) for a, b in zip(rec["losses"], ref))
+    emit(phase="front_door", card=torch.cuda.get_device_name(0),
+         world=1, backend="nccl",
+         config=dict(TRAIN, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     dtype="bfloat16", optimizer=f"adamw({TRAIN_LR})"),
+         warmup_steps=1, timed_steps=FRONT_DOOR_TIMED_STEPS,
+         train_step_ms=train_step_ms, train_losses=ref, arms=arms,
+         cache=cache, chain=chain)
+    want = {k: TRAIN["n_layers"] for k in tflash.LAUNCHES}
+    for name, rec in arms.items():
+        ls = rec["losses"]
+        if rec["launches_per_step"] != want:
+            fail(f"front_door {name}: launches per step "
+                 f"{rec['launches_per_step']}, expected {want}")
+        if not (np.all(np.isfinite(ls)) and ls[-1] < ls[0]):
+            fail(f"front_door {name}: losses {ls} not finite and falling")
+        if not rec["max_rel_loss_diff_vs_train"] <= FSDP_LOSS_RTOL:
+            fail(f"front_door {name}: losses {ls} vs train's {ref}")
+        if list(rec["trace_counts"].values()) != [1]:
+            fail(f"front_door {name}: builds {rec['trace_counts']}")
+    if not (cache["same_object"]
+            and cache["compiles_after"] == cache["compiles_before"] == 1):
+        fail(f"front_door: builder cache {cache}")
+    # two eval forwards and one prefill per request
+    fwd = TRAIN["n_layers"] * (2 + len(HANDOFF_PROMPTS))
+    if chain["reshards"] != {"redistribute": 0, "full_tensor": 0}:
+        fail(f"front_door: the handoff chain resharded: {chain['reshards']}")
+    if (chain["streams"] != [HANDOFF_NEW] * len(HANDOFF_PROMPTS)
+            or chain["eval_shape"] != [TRAIN_BATCH]
+            or chain["eval_traces"] != 1
+            or not chain["zero3_eval_pinned_is"]
+            or [k for k, _ in refused] != ["cpu_copy", "plain_vs_zero3"]
+            or chain_launches.get("flash_attention_fwd") != fwd
+            or not np.isfinite(chain["eval_nll_mean"])
+            or abs(chain["zero3_eval_nll_mean"] - chain["eval_nll_mean"])
+            > 0.05 * chain["eval_nll_mean"]):
+        fail(f"front_door: handoff chain {chain}")
+    return {name: rec["launches_per_step"] for name, rec in arms.items()}
+
+
+def phase_ckpt_sharded(torch, port, device):
+    """FLAGSHIP's parameters and adamw state (after two ``train``-shaped
+    steps) saved as format 2 by one writer at ``dp = 4``
+    (``CheckpointManager(sharded=True)``, async), restored whole into a
+    fresh model and state, and read at ``dp = 2`` rank 0 (a ``Target``):
+    blocking and write seconds, bytes, shards, restore seconds, bytes
+    read, every CRC checked, bit-for-bit equality."""
+    from distributed_pytorch_tpu_torch.ckpt import (CheckpointManager,
+                                                    ReadStats, Target,
+                                                    restore_sharded)
+    from distributed_pytorch_tpu_torch.ckpt.manager import \
+        jax_opt_state_specs
+    from distributed_pytorch_tpu_torch.optim import adamw
+    from distributed_pytorch_tpu_torch.parallel import fsdp, make_train_step
+    from distributed_pytorch_tpu_torch.utils import checkpoint as tck
+
+    def build(seed):
+        return port.TransformerLM(
+            dtype=torch.bfloat16, device=device,
+            generator=torch.Generator(device=device).manual_seed(seed),
+            **TRAIN)
+
+    model = build(0)
+    opt = adamw(TRAIN_LR)
+    step = make_train_step(lm_loss, opt)
+    state = opt.init(model.parameters())
+    tokens = train_tokens(torch, 6, 2, device)
+    for _ in range(2):
+        state = step(model, state, tokens).opt_state
+    torch.cuda.synchronize()
+    tmp = tempfile.mkdtemp(prefix="ckpt_sharded_")
+    ck = os.path.join(tmp, "ck")
+    try:
+        p_specs = fsdp.fsdp_param_specs(model, 4)
+        mgr = CheckpointManager(ck, sharded=True, param_specs=p_specs,
+                                axis_sizes={"dp": 4}, async_save=True)
+        t0 = time.perf_counter()
+        mgr.save(2, model, state)
+        save_call_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mgr.wait()
+        wait_s = time.perf_counter() - t0
+        saved = mgr.saves[-1]
+        with open(os.path.join(ck, "step_2", "manifest.json")) as f:
+            man = json.load(f)
+        n_members = sum(len(lf["shards"]) for t in man["trees"].values()
+                        for lf in t["leaves"])
+        disk = sum(os.path.getsize(os.path.join(ck, "step_2", n))
+                   for n in os.listdir(os.path.join(ck, "step_2")))
+        fresh = build(1)
+        like = opt.init(fresh.parameters())
+        full = ReadStats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = restore_sharded(ck, like_params=fresh, like_opt_state=like,
+                              stats=full)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        equal = (all(torch.equal(a, b) for a, b in
+                     zip(fresh.parameters(), model.parameters()))
+                 and got.opt_state.step == state.step
+                 and all(torch.equal(a, b) for a, b in
+                         zip(got.opt_state.mu + got.opt_state.nu,
+                             state.mu + state.nu)))
+        p_tree = tck.jax_params(model, tck._meta)
+        p2 = fsdp.fsdp_param_specs(model, 2)
+        o2 = jax_opt_state_specs(tck.jax_opt_state(state, model, tck._meta),
+                                 p2, p_tree)
+        half = ReadStats()
+        t0 = time.perf_counter()
+        restore_sharded(ck, stats=half, target=Target(
+            specs={"params": p2, "opt_state": o2}, axis_sizes={"dp": 2},
+            coords={"dp": 0}))
+        half_s = time.perf_counter() - t0
+        del fresh, like, got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, state, step
+    torch.cuda.empty_cache()
+    rec = dict(card=torch.cuda.get_device_name(0),
+               config=dict(TRAIN, dtype="bfloat16",
+                           optimizer=f"adamw({TRAIN_LR})"),
+               n_params=n_params, axes={"dp": 4}, writer_world=1,
+               save_call_s=save_call_s, snapshot_s=saved["snapshot_s"],
+               write_s=saved["duration_s"], wait_s=wait_s,
+               bytes=saved["bytes"], shards=saved["shards"],
+               moved_bytes=saved["moved_bytes"], disk_bytes=disk,
+               restore_s=restore_s, restore_bytes=full.bytes,
+               restore_members=full.members,
+               crc_verified=full.members == n_members,
+               bit_equal=equal, dp2_rank0_s=half_s,
+               dp2_rank0_bytes=half.bytes,
+               dp2_rank0_share=half.bytes / full.bytes)
+    emit(phase="ckpt_sharded", **rec)
+    if not (equal and rec["crc_verified"] and saved["shards"] == n_members
+            and full.bytes == saved["bytes"]
+            and 0.45 <= rec["dp2_rank0_share"] <= 0.55
+            and saved["moved_bytes"] == 0):
+        fail(f"ckpt_sharded: {rec}")
+
+
 def canonical(world: int) -> dict:
     """What rank 0 must observe of the collectives when rank r holds
     (r + 1) * [1, 2, 3]: the shared oracle of the repo's front-door
@@ -1981,7 +2378,8 @@ LM_TRAINER_RUN = ["--prefetch", "2", "--eval", "--generate", "16"]
 
 def phase_lm_trainer(torch, tflash, device, train_step_ms):
     """``train_transformer_lm.main_worker`` at world 1: save at 10 steps,
-    resume to 15, against 15 uninterrupted steps; then a traced run."""
+    resume to 15, against 15 uninterrupted steps; then a traced run; then
+    the same save / resume pair with ``--sharded-ckpt``."""
     from distributed_pytorch_tpu_torch.examples import train_transformer_lm
     tmp = tempfile.mkdtemp(prefix="lm_trainer_")
     ck = os.path.join(tmp, "ck")
@@ -2006,6 +2404,12 @@ def phase_lm_trainer(torch, tflash, device, train_step_ms):
         launches = dict(tflash.LAUNCHES)
         r4 = run("run4", ["--steps", "11", "--trace",
                           os.path.join(tmp, "trace")])
+        sck = os.path.join(tmp, "sck")
+        r5 = run("run5", LM_TRAINER_RUN + ["--steps", "10", "--save", sck,
+                                           "--save-every", "5",
+                                           "--sharded-ckpt"])
+        r6 = run("run6", LM_TRAINER_RUN + ["--steps", "15", "--save", sck,
+                                           "--resume", "--sharded-ckpt"])
         with open(r4["trace_path"]) as f:
             events = json.load(f)["traceEvents"]
     finally:
@@ -2027,6 +2431,8 @@ def phase_lm_trainer(torch, tflash, device, train_step_ms):
     resumed, uninterrupted = r2["losses"], r3["losses"][10:15]
     gen = bytes(r3["generated"]).decode(errors="replace")
     saves = r1["ckpt_saves"]
+    s_saves = r5["ckpt_saves"]
+    sharded_resumed = r6["losses"]
     emit(phase="lm_trainer", card=torch.cuda.get_device_name(0),
          argv=base + LM_TRAINER_RUN, train_windows=len(r3["losses"]),
          step_ms=step_ms, timed_steps=r3["timed_steps"],
@@ -2049,12 +2455,29 @@ def phase_lm_trainer(torch, tflash, device, train_step_ms):
          prefetch_wait_ms_per_batch=r3["data_ms_per_batch"],
          unprefetched_ms_per_batch=r4["data_ms_per_batch"],
          eval_nll=r3["eval_nll"], generated=gen,
-         wall_s=[r["wall_s"] for r in (r1, r2, r3, r4)])
+         sharded=dict(losses_run5=r5["losses"],
+                      losses_run6=sharded_resumed,
+                      resume_start_step=r6["start_step"],
+                      resume_max_abs_diff=max(
+                          abs(a - b) for a, b in zip(sharded_resumed,
+                                                     uninterrupted)),
+                      save_call_s=r5["save_call_s"],
+                      save_write_s=[x["duration_s"] for x in s_saves],
+                      save_snapshot_s=[x["snapshot_s"] for x in s_saves],
+                      checkpoint_bytes=s_saves[-1]["bytes"],
+                      shards=s_saves[-1]["shards"],
+                      restore_s=r6["restore_s"]),
+         wall_s=[r["wall_s"] for r in (r1, r2, r3, r4, r5, r6)])
     if any(n != 12 for n in per_step.values()):
         fail(f"lm_trainer: launches per step {per_step}")
     if r2["start_step"] != 10 or resumed != uninterrupted:
         fail(f"lm_trainer: resumed losses {resumed} vs uninterrupted "
              f"{uninterrupted}")
+    if (r6["start_step"] != 10 or sharded_resumed != uninterrupted
+            or r5["losses"] != r3["losses"][:10] or len(s_saves) != 3):
+        fail(f"lm_trainer --sharded-ckpt: run 5 {r5['losses']}, resumed "
+             f"{sharded_resumed} vs uninterrupted {uninterrupted}, saves "
+             f"{s_saves}")
     if not (np.all(np.isfinite(r1["losses"] + r3["losses"]))
             and np.isfinite(r3["eval_nll"])
             and len(r3["generated"]) == 16 and r1["losses"] == r3["losses"][:10]
@@ -3161,6 +3584,11 @@ def main() -> int:
     # group, and the vocab-parallel loss at tp = 1
     fsdp_launches = phase_fsdp(torch, port, tflash, device, train_losses,
                                step_ms)
+    # the front door (every engine, the builder cache, the handoff chain)
+    # and the sharded checkpoint of FLAGSHIP's state
+    front_door_launches = phase_front_door(torch, port, tflash, device,
+                                           train_losses, step_ms)
+    phase_ckpt_sharded(torch, port, device)
 
     # the DDP helper API: launch and the collectives on the card, the
     # reference workload on the card and in two gloo CPU ranks, the
@@ -3227,6 +3655,9 @@ def main() -> int:
             arm: per_step[name] for arm, per_step in host_launches.items()}
         row["fsdp_launches_per_step"] = {
             arm: per_step[name] for arm, per_step in fsdp_launches.items()}
+        row["front_door_launches_per_step"] = {
+            arm: per_step[name]
+            for arm, per_step in front_door_launches.items()}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=launches[name], **row)

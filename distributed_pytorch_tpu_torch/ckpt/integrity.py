@@ -1,4 +1,5 @@
-"""CRC32C, the checksum of the KV-page handoff frames.
+"""CRC32C, the checksum of the KV-page handoff frames and of every
+checkpoint shard.
 
 The port's copy of ``distributed_pytorch_tpu/ckpt/integrity.py``. The
 value comes from the repo's host library (``runtime/native.py``, built
@@ -50,3 +51,15 @@ def crc32c(buf) -> int:
     """CRC32C of a bytes-like buffer or a C-contiguous array, from the
     host library (built at first use; a failed build raises)."""
     return native.crc32c(buf)
+
+
+def array_crc32c(a) -> int:
+    """CRC32C over an array's C-order raw bytes (the shard checksum): a
+    numpy array, or a tensor (a ``bfloat16`` one over its raw bytes,
+    ``view(torch.uint8)``). Equal to the JAX package's value for the
+    same bytes."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        t = a.detach().cpu().contiguous().reshape(-1)
+        return crc32c(t.view(torch.uint8).numpy())
+    return crc32c(np.ascontiguousarray(a))

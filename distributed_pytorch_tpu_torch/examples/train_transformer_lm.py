@@ -18,12 +18,17 @@ those of an uninterrupted run. ``--eval`` reports the held-out loss,
 profile of steps 5-10. ``--fsdp`` trains in the ZeRO-3 layout over the
 ranks (``parallel/fsdp.py``: FSDP2, the JAX spec of
 ``fsdp_param_specs``) when there is more than one; at world 1 it is the
-plain step, as in the JAX package. A checkpoint is then written from
-the gathered state (the same format 1), and ``--resume`` restores into
-the whole model before it is sharded.
+plain step, as in the JAX package. A format-1 checkpoint is then written
+from the gathered state, and ``--resume`` restores into the whole model
+before it is sharded. ``--sharded-ckpt`` writes format 2 instead
+(``ckpt/``): the specs of ``shard_layouts(n_shards=world)``, every rank
+writing only the shards it owns (under ``--fsdp`` its local ones, never
+gathered); ``--resume`` restores a format-2 checkpoint written at any
+world size into this run's layout, each rank reading only the shards
+that overlap what it holds.
 
-Not ported yet (each raises, naming its ROADMAP.md item):
-``--sharded-ckpt`` (Queue A item 5.4) and ``--elastic`` (item 6).
+Not ported yet (raises, naming its ROADMAP.md item): ``--elastic``
+(Queue A item 6).
 
 Run (one rank per visible card; ``--device cpu`` on the CPU)::
 
@@ -128,7 +133,9 @@ def parse_args(argv=None):
     p.add_argument("--save-every", default=50, type=int,
                    help="Steps between checkpoints when --save is set.")
     p.add_argument("--sharded-ckpt", action="store_true",
-                   help="Sharded checkpoints (not ported yet).")
+                   help="Sharded checkpoints (format 2): every rank "
+                        "writes the shards it owns; --resume reshards "
+                        "onto this run's world size.")
     p.add_argument("--resume", action="store_true",
                    help="Restore the latest checkpoint from --save and "
                         "continue exactly.")
@@ -144,11 +151,9 @@ def parse_args(argv=None):
 
 
 def _unported(args) -> None:
-    for flag, on, item in (("--sharded-ckpt", args.sharded_ckpt, "5.4"),
-                           ("--elastic", args.elastic, "6")):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md Queue A item {item})")
+    if args.elastic:
+        raise NotImplementedError(
+            "--elastic is not ported yet (ROADMAP.md Queue A item 6)")
 
 
 class Subset:
@@ -301,24 +306,43 @@ def main_worker(rank, world_size, argv=None, quiet=False, history=None,
                               "start_step": 0}
     start_step = 0
     ckpt_mgr = None
+    if args.resume and not args.save:
+        raise ValueError("--resume requires --save DIR")
+
+    def resume():
+        """Restore the latest checkpoint into the model and its state
+        (in place; under a sharded layout each rank its own region)."""
+        nonlocal opt_state, start_step
+        t0 = time.perf_counter()
+        ck = restore_checkpoint(args.save, like_params=model,
+                                like_opt_state=opt_state)
+        record["restore_s"] = time.perf_counter() - t0
+        opt_state = ck.opt_state
+        start_step = ck.step + 1
+        record["start_step"] = start_step
+        if not quiet:
+            dist.print_primary(f"resumed from step {ck.step} "
+                               f"({args.save})")
+
     if args.save:
         from distributed_pytorch_tpu_torch.utils.checkpoint import (
             CheckpointManager, restore_checkpoint)
-        ckpt_mgr = CheckpointManager(args.save, interval=args.save_every,
-                                     keep=3, async_save=True)
-        if args.resume:
-            t0 = time.perf_counter()
-            ck = restore_checkpoint(args.save, like_params=model,
-                                    like_opt_state=opt_state)
-            record["restore_s"] = time.perf_counter() - t0
-            opt_state = ck.opt_state
-            start_step = ck.step + 1
-            record["start_step"] = start_step
-            if not quiet:
-                dist.print_primary(f"resumed from step {ck.step} "
-                                   f"({args.save})")
-    elif args.resume:
-        raise ValueError("--resume requires --save DIR")
+        if args.sharded_ckpt:
+            # the checkpoint follows the sharding: the spec tree of the
+            # ZeRO layout decomposes the state into owned shards, and a
+            # restore reshards onto whatever world this run has
+            p_specs, _, ax = fsdp.shard_layouts(model, None,
+                                                n_shards=max(world, 1))
+            ckpt_mgr = CheckpointManager(
+                args.save, interval=args.save_every, keep=3,
+                async_save=True, sharded=True, param_specs=p_specs,
+                axis_sizes=ax)
+        else:
+            ckpt_mgr = CheckpointManager(args.save,
+                                         interval=args.save_every,
+                                         keep=3, async_save=True)
+        if args.resume and not args.sharded_ckpt:
+            resume()
 
     if args.fused_ce:
         def per_example(m, x, y):
@@ -347,6 +371,10 @@ def main_worker(rank, world_size, argv=None, quiet=False, history=None,
         step_fn = fsdp.make_fsdp_train_step(loss_fn, optimizer, mesh, specs)
     else:
         step_fn = make_train_step(loss_fn, optimizer)
+    if args.resume and args.sharded_ckpt:
+        # into this run's layout: under --fsdp each rank fills its local
+        # shards, reading only the saved shards that overlap them
+        resume()
     record["fsdp"] = use_fsdp
     logger = MetricsLogger(args.log)
 
@@ -356,7 +384,8 @@ def main_worker(rank, world_size, argv=None, quiet=False, history=None,
         collective of every rank)."""
         if not (force or ckpt_mgr.should_save(at)):
             return False
-        params, state = ((fsdp.gather_state(model, opt_state)) if use_fsdp
+        params, state = ((fsdp.gather_state(model, opt_state))
+                         if use_fsdp and not args.sharded_ckpt
                          else (model, opt_state))
         return ckpt_mgr.save(at, params, state, extra=extra, force=force)
     tokens_per_step = world * args.batch_size * args.seq_len

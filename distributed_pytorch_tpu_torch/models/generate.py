@@ -751,13 +751,23 @@ def make_generate_fn(model: TransformerLM, max_new: int, *,
                      temperature: float = 0.0, top_k: Optional[int] = None,
                      top_p: Optional[float] = None,
                      max_len: Optional[int] = None,
-                     allow_custom_attn: bool = False):
+                     allow_custom_attn: bool = False,
+                     param_shardings=None):
     """Build ``fn(prompt, generator=None) -> (B, max_new) tokens``.
-    ``generator`` defaults to one on the model's device seeded 0."""
+    ``generator`` defaults to one on the model's device seeded 0.
+
+    ``param_shardings``: the producer's params out-shardings (a train
+    step's ``out_shardings["params"]``). When set, every call first
+    asserts the model's parameters already carry them
+    (``parallel.front_door.verify_handoff``): a mismatch raises a typed
+    ``HandoffMismatch`` instead of the weights being copied."""
     _check_attn_compatible(model, allow_custom_attn)
     window = _model_window(model)
 
     def fn(prompt, generator: Optional[torch.Generator] = None):
+        if param_shardings is not None:
+            from ..parallel.front_door import verify_handoff
+            verify_handoff(model, param_shardings, what="generate params")
         prompt = _as_tokens(model, prompt)
         s = prompt.shape[1]
         limit = max_len or (s + max_new)

@@ -489,6 +489,38 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+class SequenceShardedInput(NotImplementedError):
+    """Attention (or a step's batch) sharded along the sequence:
+    sequence parallelism is ROADMAP.md Queue A item 5.5."""
+
+
+def _local_flash(q, k, v, kw):
+    """Attention of DTensor q, k, v (B, H, S, D) on their local shards:
+    under batch or head sharding (or replication) every row's keys are
+    local, so the kernel runs on ``to_local()`` and the outputs come back
+    as DTensors of the same placements (both differentiable)."""
+    from torch.distributed.tensor import DTensor
+    pl = tuple(q.placements)
+    for t in (k, v):
+        if not isinstance(t, DTensor) or tuple(t.placements) != pl \
+                or t.device_mesh != q.device_mesh:
+            raise ValueError("flash attention takes q, k and v as DTensors "
+                             "of one mesh and placement")
+    for p in pl:
+        if p.is_shard() and p.dim >= 2:
+            raise SequenceShardedInput(
+                f"flash attention over q sharded on dimension {p.dim} "
+                f"({pl}): sequence parallelism is not ported yet "
+                "(ROADMAP.md Queue A item 5.5)")
+        if p.is_partial():
+            raise ValueError(f"flash attention of a partial q ({pl})")
+    o, lse = _FlashAttention.apply(q.to_local(), k.to_local(),
+                                   v.to_local(), kw)
+    mesh = q.device_mesh
+    return (DTensor.from_local(o, mesh, pl, run_check=False),
+            DTensor.from_local(lse, mesh, pl, run_check=False))
+
+
 def _validate(causal, window, causal_offset, diag_offset):
     """The JAX package's argument contract (flash_attention_with_lse)."""
     if window is not None and not causal:
@@ -520,7 +552,9 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = False,
     """softmax(q k^T * scale) v and its per-row log-sum-exp (B, H, Sq),
     both differentiable (the lse cotangent folds into the backward's
     delta term). CUDA tensors run the kernels, CPU tensors the plain
-    versions."""
+    versions. DTensor inputs sharded over the batch or the heads run on
+    their local shards."""
+    from torch.distributed.tensor import DTensor
     _validate(causal, window, causal_offset, diag_offset)
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash attention runs on cuda or cpu, got "
@@ -528,6 +562,8 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = False,
     kw = dict(causal=causal, scale=scale,
               window=int(window) if window is not None else None,
               causal_offset=int(causal_offset), diag_offset=int(diag_offset))
+    if isinstance(q, DTensor):
+        return _local_flash(q, k, v, kw)
     return _FlashAttention.apply(q, k, v, kw)
 
 

@@ -18,8 +18,9 @@ primitives (``spmd.py``).
 * :func:`build_layout` / :class:`FlatLayout`: the flat bucket;
 * :func:`shard_optimizer` / :class:`ShardedOptimizer` /
   :class:`ShardedOptState`: an elementwise optimizer over a slice;
-* :func:`make_sharded_train_step`, reached from
-  ``parallel.make_train_step(..., weight_update="sharded")``.
+* :func:`make_sharded_train_step`, the engine the front door
+  (``parallel.front_door.make_step(weight_update="sharded")``) builds;
+  :func:`.spmd.make_spmd_sharded_train_step` is its historical shim.
 """
 
 from __future__ import annotations
@@ -29,25 +30,28 @@ from typing import Callable, Optional
 from .. import Optimizer
 from .layout import FlatLayout, build_layout, lcm_pad_multiple
 from .optimizer import ShardedOptimizer, ShardedOptState, shard_optimizer
+from .spmd import make_spmd_sharded_train_step
 
 __all__ = [
     "FlatLayout", "build_layout", "lcm_pad_multiple",
     "ShardedOptimizer", "ShardedOptState", "shard_optimizer",
-    "make_sharded_train_step",
+    "make_sharded_train_step", "make_spmd_sharded_train_step",
 ]
 
 
 def make_sharded_train_step(loss_fn: Callable, optimizer: Optimizer,
                             donate: Optional[bool] = None,
                             grad_reduce: str = "mean",
-                            mixed_precision: str = "off") -> Callable:
+                            mixed_precision: str = "off",
+                            pad_multiple: Optional[int] = None) -> Callable:
     """The ``weight_update="sharded"`` step: ``step(model, opt_state,
     batch) -> StepOutput`` with ``opt_state`` from the returned step's
     ``init_opt_state(params)`` (this rank's :class:`ShardedOptState`).
     On the native host group when one is live, else on torch.distributed
     (which also covers world 1 without a group). ``grad_reduce``:
-    ``mean`` or ``quant`` / ``int8``. ``donate`` changes nothing (the
-    update works in place)."""
+    ``mean`` or ``quant`` / ``int8``; ``pad_multiple`` as in
+    :func:`build_layout` (torch.distributed door only). ``donate``
+    changes nothing (the update works in place)."""
     from ...parallel.data_parallel import forward_backward
     from ...optim.schedules import reduces_across_leaves
     from ...runtime import context
@@ -70,4 +74,5 @@ def make_sharded_train_step(loss_fn: Callable, optimizer: Optimizer,
                                             grad_reduce=grad_reduce)
     from .spmd import make_dist_sharded_train_step
     return make_dist_sharded_train_step(fb, optimizer,
-                                        grad_reduce=grad_reduce)
+                                        grad_reduce=grad_reduce,
+                                        pad_multiple=pad_multiple)

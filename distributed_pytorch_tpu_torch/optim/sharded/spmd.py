@@ -8,20 +8,42 @@ its state lives on the parameters' device, and the legs are
 ``grad_reduce="quant"`` the int8 primitives
 ``comm.primitives.quantized_reduce_scatter`` /
 ``quantized_all_gather``. At world 1 the step is the plain update of
-the one segment.
+the one segment. The engine is built by the front door
+(``parallel.front_door.make_step(weight_update="sharded")``);
+:func:`make_spmd_sharded_train_step` keeps the JAX package's builder
+name and signature as a shim over it.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 from .. import Optimizer
 from .layout import build_layout
 from .optimizer import shard_optimizer
 
 
+def make_spmd_sharded_train_step(loss_fn: Callable, optimizer: Optimizer,
+                                 donate: Optional[bool] = None,
+                                 grad_reduce: str = "mean",
+                                 pad_multiple: Optional[int] = None
+                                 ) -> Callable:
+    """The sharded-update DP step, ``step(model, opt_state, batch) ->
+    StepOutput`` with ``opt_state`` from the step's
+    ``init_opt_state(params)`` and its spec tree from
+    ``step.state_specs(opt_state)`` (the sharded checkpoint's
+    ``opt_specs``). A shim over the front door
+    (``front_door.make_step(weight_update="sharded")``)."""
+    from ...parallel.front_door import make_step
+    return make_step(loss_fn, optimizer, weight_update="sharded",
+                     wire=grad_reduce, donate=donate,
+                     pad_multiple=pad_multiple)
+
+
 def make_dist_sharded_train_step(fb: Callable, optimizer: Optimizer,
-                                 grad_reduce: str = "mean") -> Callable:
+                                 grad_reduce: str = "mean",
+                                 pad_multiple: Optional[int] = None
+                                 ) -> Callable:
     """The sharded step over the default torch.distributed group."""
     from ...comm import primitives as prim
     from ...parallel.data_parallel import step_output, trainable
@@ -33,7 +55,8 @@ def make_dist_sharded_train_step(fb: Callable, optimizer: Optimizer,
 
     def ensure(ps):
         if "layout" not in holder:
-            holder["layout"] = build_layout(ps, world)
+            holder["layout"] = build_layout(ps, world,
+                                            pad_multiple=pad_multiple)
             holder["sharded"] = shard_optimizer(optimizer,
                                                 holder["layout"])
         return holder["layout"], holder["sharded"]

@@ -40,9 +40,6 @@ from ..runtime import env as _env
 #: grad_reduce spellings accepted by :func:`make_train_step`.
 GRAD_REDUCE_MODES = ("mean", "int8", "quant", "q4", "adaptive")
 
-#: weight_update modes accepted by :func:`make_train_step`.
-WEIGHT_UPDATES = ("replicated", "sharded")
-
 #: mixed_precision policies accepted by :func:`make_train_step`.
 MP_POLICIES = ("off", "bf16")
 
@@ -215,44 +212,24 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     the bf16 cast of the float32 parameters (:func:`mp_cast_params`)
     and the float32 gradients update the float32 masters.
 
-    ``donate`` is accepted for the JAX signature and changes nothing:
-    the update already writes the parameters and the optimizer state in
-    place, which is what donation buys XLA."""
-    if grad_reduce not in GRAD_REDUCE_MODES:
-        raise ValueError(f"grad_reduce must be one of {GRAD_REDUCE_MODES}, "
-                         f"got {grad_reduce!r}")
-    if weight_update is None:
-        weight_update = _env.get("DPX_WEIGHT_UPDATE")
-    if weight_update not in WEIGHT_UPDATES:
-        raise ValueError(f"weight_update must be replicated|sharded, got "
-                         f"{weight_update!r}")
-    if weight_update == "sharded" and grad_reduce in ("q4", "adaptive"):
-        raise ValueError(
-            "weight_update='sharded' supports grad_reduce mean|quant|int8 "
-            "only (the sharded gather leg pins the q8 grid its "
-            "exact-master error feedback assumes); use "
-            "weight_update='replicated' with q4/adaptive")
-    mp = (_env.get("DPX_MP_POLICY") if mixed_precision is None
-          else mixed_precision)
-    if mp not in MP_POLICIES:
-        raise ValueError(f"mixed_precision must be one of {MP_POLICIES}, "
-                         f"got {mp!r}")
-    if weight_update == "sharded":
-        from ..optim.sharded import make_sharded_train_step
-        return make_sharded_train_step(loss_fn, optimizer, donate=donate,
-                                       grad_reduce=grad_reduce,
-                                       mixed_precision=mp)
-    del donate
-    fb = forward_backward(loss_fn, mp)
-    if context.get_host_comm() is not None:
-        return _make_host_train_step(fb, optimizer, grad_reduce, overlap,
-                                     comm_buckets, on_bucket_ready)
-    return _make_dist_train_step(fb, optimizer, grad_reduce)
+    A shim over the front door (``front_door.make_step`` with
+    ``specs=None``, as in the JAX package): the builder cache, the build
+    counts and the handoff shardings come from there. ``donate`` is
+    keyed there and changes nothing: the update already writes the
+    parameters and the optimizer state in place, which is what donation
+    buys XLA."""
+    from .front_door import make_step
+    return make_step(loss_fn, optimizer, wire=grad_reduce,
+                     weight_update=weight_update,
+                     mixed_precision=mixed_precision,
+                     overlap=overlap, comm_buckets=comm_buckets,
+                     on_bucket_ready=on_bucket_ready, donate=donate)
 
 
 def _make_dist_train_step(fb: Callable, optimizer: Optimizer,
                           grad_reduce: str) -> Callable:
-    """The torch.distributed door of :func:`make_train_step`."""
+    """The torch.distributed door of :func:`make_train_step`: the
+    front door's DDP engine (``specs=None``)."""
     from ..comm import host_backend as _hb
     from ..comm import primitives as prim
     from ..comm.wire import WidthChooser
@@ -302,6 +279,7 @@ def _make_dist_train_step(fb: Callable, optimizer: Optimizer,
         return step_output(model, opt_state, loss, metrics)
 
     step.width_chooser = chooser
+    step.wire_bits = bits
     return step
 
 

@@ -33,9 +33,10 @@ first, then the step with ``fsdp_param_specs(model, n, base_specs=
 transformer_lm_param_specs(model))`` on a dp x tp mesh.
 
 The flat-bucket ``weight_update="sharded"`` of ``optim/sharded/`` is a
-different layout and stays as it is. The JAX steps are shims over the
-front door (``front_door.make_step``); the port builds the ladder here
-directly (ROADMAP Queue A item 5.3 makes these the front door's shims).
+different layout and stays as it is. As in the JAX package, the ladder's
+builders are shims over the front door (``front_door.make_step`` with
+``specs=StepSpecs(...)``), whose constraint-ladder engine is
+:func:`_ladder_step` here.
 """
 
 from __future__ import annotations
@@ -50,8 +51,9 @@ from ..comm import primitives as prim
 from ..convert import spec_placements
 from ..optim import Optimizer, Q8LogMoment, Q8Moment
 from ..runtime import env as _env
+from ..runtime.context import DATA_AXIS
 from .data_parallel import (MP_POLICIES, _average_grads, forward_backward,
-                            make_train_step, mp_cast_params, step_output)
+                            mp_cast_params, step_output)
 from .tensor import (P, jax_layout, replicated_specs, spec_axes,
                      specs_by_param, sub_mesh, tree_leaves, tree_map)
 
@@ -334,8 +336,8 @@ def make_fsdp_train_step(loss_fn: Callable, optimizer: Optimizer, mesh,
                          donate: Optional[bool] = None, *, axis: str = "dp",
                          mixed_precision: Optional[str] = None) -> Callable:
     """``step(model, opt_state, batch) -> StepOutput`` with the ZeRO
-    layout of the three spec trees (each ``None`` defaults to the one
-    before it: grads to params, state to grads):
+    layout of the three spec trees (each ``None`` defaults as the JAX
+    package's: state to params, grads to state):
 
     ========  ============  ===========  ===========
     stage     param_specs   grad_specs   state_specs
@@ -353,13 +355,30 @@ def make_fsdp_train_step(loss_fn: Callable, optimizer: Optimizer, mesh,
     restored) as its state specs say; the laid-out state comes back in
     ``StepOutput.opt_state``. With all three replicated it is
     ``make_train_step``'s step. ``mixed_precision`` as in
-    ``make_train_step``. ``donate`` is accepted and changes nothing (the
-    update is in place). The ZeRO-1 and ZeRO-2 rungs take a model whose
-    parameters are replicated (not tensor-parallel)."""
-    del donate
-    grad_specs = param_specs if grad_specs is None else grad_specs
-    state_specs = grad_specs if state_specs is None else state_specs
-    mp = _resolve_mp(mixed_precision)
+    ``make_train_step``. The ZeRO-1 and ZeRO-2 rungs take a model whose
+    parameters are replicated (not tensor-parallel).
+
+    A shim over the front door (``front_door.make_step`` with
+    ``specs=StepSpecs(params, opt, grads)``): the builder cache, the
+    build counts, ``donate`` (keyed; the update is in place either way)
+    and ``step.out_shardings`` for the reshard-free handoff come from
+    there. The ladder shards over ``dp`` (``axis``)."""
+    from .front_door import StepSpecs, make_step
+    if axis != DATA_AXIS:
+        raise ValueError(f"the front door's ladder shards over "
+                         f"{DATA_AXIS!r}, not {axis!r}")
+    return make_step(loss_fn, optimizer, mesh=mesh,
+                     specs=StepSpecs(params=param_specs, opt=state_specs,
+                                     grads=grad_specs),
+                     donate=donate, mixed_precision=mixed_precision)
+
+
+def _ladder_step(loss_fn, optimizer, mesh, param_specs, state_specs,
+                 grad_specs, mp, axis: str = DATA_AXIS):
+    """The constraint-ladder engine of the front door: the rung the spec
+    trees name (``None`` defaults: state to params, grads to state)."""
+    state_specs = param_specs if state_specs is None else state_specs
+    grad_specs = state_specs if grad_specs is None else grad_specs
     if _sharded(param_specs, axis):
         if not (_same(grad_specs, param_specs)
                 and _same(state_specs, param_specs)):
@@ -368,7 +387,9 @@ def make_fsdp_train_step(loss_fn: Callable, optimizer: Optimizer, mesh,
         return _make_zero3_step(loss_fn, optimizer, mesh, param_specs,
                                 axis, mp)
     if not _sharded(state_specs, axis):
-        return make_train_step(loss_fn, optimizer, mixed_precision=mp)
+        from .data_parallel import _make_dist_train_step
+        return _make_dist_train_step(forward_backward(loss_fn, mp),
+                                     optimizer, "mean")
     if _same(grad_specs, state_specs):
         stage = 2
     elif _same(grad_specs, param_specs):
@@ -515,7 +536,8 @@ def make_zero1_train_step(loss_fn: Callable, optimizer: Optimizer, mesh,
     sharded over ``axis`` (:func:`fsdp_param_specs` of ``params``, the
     model). Each rank updates its 1/N slice of every sharded parameter
     and the slices are all-gathered back once per step. Returns
-    ``(step, state_specs)``."""
+    ``(step, state_specs)``; the step is the front door's
+    (:func:`make_fsdp_train_step`)."""
     p_specs = replicated_specs(params)
     s_specs = fsdp_param_specs(params, _axis_size(mesh, axis), axis=axis,
                                min_size=min_size)
@@ -535,7 +557,8 @@ def make_zero2_train_step(loss_fn: Callable, optimizer: Optimizer, mesh,
     rank's 1/N slice (one flat reduce-scatter) beside its 1/N optimizer
     state over ``axis``; the updated slices all-gather back once per
     step. The same trajectory as ZeRO-1 and replicated DP. Returns
-    ``(step, state_specs)``."""
+    ``(step, state_specs)``; the step is the front door's
+    (:func:`make_fsdp_train_step`)."""
     p_specs = replicated_specs(params)
     s_specs = fsdp_param_specs(params, _axis_size(mesh, axis), axis=axis,
                                min_size=min_size)

@@ -182,16 +182,25 @@ def sub_mesh(mesh, axes):
     return mesh[names if len(names) > 1 else names[0]]
 
 
+def layout_mesh(mesh, axes):
+    """The sub-mesh a layout over ``axes`` lives on: those axes, or the
+    ``dp`` axis when there are none (a replicated layout). DTensor's
+    sharding propagation slows steeply with the mesh's dimensions, so a
+    layout never spans the axes it does not use."""
+    if not axes:
+        names = tuple(mesh.mesh_dim_names or ())
+        axes = ("dp",) if "dp" in names else names
+    return sub_mesh(mesh, axes)
+
+
 def shard_params(model: nn.Module, specs, mesh) -> nn.Module:
     """Place ``model``'s parameters onto ``mesh`` per the spec tree: each
-    becomes a DTensor on the sub-mesh of the axes the tree names (in
-    place, the module's parameters replaced; returns the module). A
+    becomes a DTensor on the sub-mesh of the axes the tree names (of
+    ``dp``, replicated, when it names none; :func:`layout_mesh`), in
+    place, the module's parameters replaced; returns the module. A
     parameter shared by several modules is placed once."""
     from torch.distributed.tensor import distribute_tensor
-    axes = spec_axes(specs)
-    if not axes:
-        return model
-    sub = sub_mesh(mesh, axes)
+    sub = layout_mesh(mesh, spec_axes(specs))
     names = tuple(sub.mesh_dim_names)
     placed = {}
     for (slot, spec), p in zip(specs_by_param(model, specs),

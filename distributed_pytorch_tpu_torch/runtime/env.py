@@ -88,6 +88,13 @@ register("DPX_FLASH_MIN_SEQ", "int", 1024,
          "attention instead of the CUDA flash kernel (numerics identical "
          "either way).")
 
+register("DPX_DONATE", "bool", True,
+         "Default `donate` of the front door (`parallel.front_door"
+         ".make_step` and every builder shimmed over it): keyed in its "
+         "builder cache and recorded on `step.donated`. Every engine "
+         "updates the parameters and the optimizer state in place "
+         "either way.")
+
 register("DPX_REMAT", "str", "none",
          "Default per-layer remat policy of `models.TransformerLM"
          "(remat=None)`: `none` (save all activations), `full` "

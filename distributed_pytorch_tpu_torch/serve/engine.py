@@ -40,7 +40,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,7 +91,14 @@ class EngineConfig:
     ``draft_model`` (a ``TransformerLM`` of the same vocabulary on the
     same device) proposing ``draft_len`` (default
     ``DPX_SPEC_DRAFT_LEN``) tokens per iteration; without a draft, or
-    with a sliding-window model, it raises at construction."""
+    with a sliding-window model, it raises at construction.
+
+    ``param_shardings`` (the reshard-free admit): the shardings the
+    model's parameters must already carry, typically a train step's
+    ``out_shardings["params"]`` (``parallel.handoff_shardings``);
+    admission checks them once (``parallel.front_door.verify_handoff``)
+    and never copies or reshards the weights: a mismatch raises a typed
+    ``HandoffMismatch`` at construction."""
 
     n_slots: int = 4
     max_len: int = 256
@@ -107,6 +114,7 @@ class EngineConfig:
     spec_decode: Optional[bool] = None
     draft_model: Optional[object] = None
     draft_len: Optional[int] = None
+    param_shardings: Optional[Any] = None
 
 
 class InferenceEngine:
@@ -126,6 +134,12 @@ class InferenceEngine:
         if cfg.n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {cfg.n_slots}")
         _check_attn_compatible(model, allow_custom_attn=False)
+        if cfg.param_shardings is not None:
+            # the train -> serve-admit half of the reshard-free handoff:
+            # assert, never copy
+            from ..parallel.front_door import verify_handoff
+            verify_handoff(model, cfg.param_shardings,
+                           what="serve-admit params")
         self.model = model
         self.device = model.device
         self.window = _model_window(model)

@@ -25,8 +25,9 @@ optimizer's ``init(model.parameters())`` returned; ``restore_checkpoint
 (dir, like_params=model, like_opt_state=state)`` loads the params into
 the model in place and returns a new state of the template's structure.
 Without templates the trees come back as nested dicts and lists of CPU
-tensors. A sharded (format 2) manifest raises ``NotImplementedError``
-(ROADMAP.md Queue A item 6).
+tensors. ``restore_checkpoint`` dispatches on the manifest's format: a
+sharded (format 2) checkpoint of ``ckpt/`` restores through the
+resharding reader (``ckpt/reader.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import torch
 
 from ..ckpt.errors import CkptError, CkptIncomplete, CkptShapeMismatch
 from ..optim import AdafactorState
+from ..optim.sharded.optimizer import ShardedOptState
 from ..runtime import context
 from .logging import append_event, is_primary
 
@@ -51,8 +53,6 @@ _STEP_DIR_RE = re.compile(r"^step_(\d+)$")
 _OLD_DIR_RE = re.compile(r"^step_(\d+)\.old\.\d+$")
 _TMP_DIR_RE = re.compile(r"^step_(\d+)\.tmp\.\d+$")
 _MANIFEST = "manifest.json"
-#: the sharded format of ``distributed_pytorch_tpu/ckpt/manifest.py``
-_SHARDED_FORMAT = 2
 
 
 # ---------------------------------------------------------------------------
@@ -307,7 +307,25 @@ def jax_opt_state(state, model, leaf=_host_copy) -> Any:
         return [leaf(s.to_jax((swapped if s.transpose else xs)[s.index]))
                 for _, s in slot_list]
 
+    def flat(node):
+        """The sharded update's state over its flat slice: the wrapped
+        optimizer's one-tensor lists are the JAX state's bare leaves."""
+        if isinstance(node, list) and len(node) == 1 and isinstance(
+                node[0], torch.Tensor):
+            return leaf(node[0])
+        if _is_namedtuple(node):
+            return type(node)(*[flat(v) for v in node])
+        return conv(node)
+
     def conv(node):
+        if isinstance(node, ShardedOptState):
+            if context.get_world_size() > 1:
+                raise CkptError(
+                    "the sharded update's state is this rank's slice of "
+                    "the flat bucket, not laid out on the mesh; "
+                    "checkpoint it at world 1", rank=context.get_rank())
+            return ShardedOptState(inner=flat(node.inner),
+                                   master=leaf(node.master))
         if isinstance(node, AdafactorState):
             return AdafactorState(step=conv(node.step),
                                   vr=leaf_list(node.vr, node.vc),
@@ -391,6 +409,27 @@ def _port_opt_state(jtree, like, model):
             return type(lk)(*[conv(getattr(jt, f), getattr(lk, f))
                               for f in lk._fields])
         return type(lk)(conv(j, x) for j, x in zip(jt, lk))
+
+    return conv(jtree, like)
+
+
+def _with_restored_scalars(like, jtree):
+    """``like`` (a port optimizer state whose tensors were restored in
+    place) with each non-tensor leaf (a step count) taken from
+    ``jtree``, its JAX-layout tree."""
+    def conv(jt, lk):
+        if isinstance(lk, int) and not isinstance(lk, bool):
+            return int(np.asarray(jt))
+        if isinstance(lk, (torch.Tensor, list)) or lk is None:
+            return lk
+        if isinstance(lk, AdafactorState):
+            return lk._replace(step=conv(jt.step, lk.step))
+        if _is_namedtuple(lk):
+            return type(lk)(*[conv(getattr(jt, f), getattr(lk, f))
+                              for f in lk._fields])
+        if isinstance(lk, tuple):
+            return type(lk)(conv(j, x) for j, x in zip(jt, lk))
+        return lk
 
     return conv(jtree, like)
 
@@ -616,12 +655,7 @@ def _load_manifest(step_dir: str, step: int) -> Dict[str, Any]:
             f"step {step}: manifest at {path!r} is truncated/unparseable "
             f"({e})", step=step, rank=rank) from e
     fmt = manifest.get("format")
-    if fmt == _SHARDED_FORMAT:
-        raise NotImplementedError(
-            f"step {step} is a sharded (format 2) checkpoint; the port "
-            "reads format 1 only (sharded checkpoints: ROADMAP.md Queue A "
-            "item 6)")
-    if fmt != 1:
+    if fmt not in (1, 2):
         raise CkptError(f"step {step}: unknown manifest format {fmt!r}",
                         step=step, rank=rank)
     return manifest
@@ -661,18 +695,23 @@ def _restore_tree(d: str, manifest, name: str, like, step: int):
 
 
 def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
-                       like_params=None, like_opt_state=None) -> Checkpoint:
+                       like_params=None, like_opt_state=None,
+                       target=None) -> Checkpoint:
     """Read ``step_<step>/`` (default: the latest).
 
     ``like_params``: the model, whose parameters are loaded in place
     (each cast to its own dtype and device; ``Checkpoint.params`` is the
     model), or a JAX-layout tree. ``like_opt_state``: with a model, the
     port state its optimizer made, returned restored as a new state of
-    the same structure; else a tree of the stored layout. Without templates the trees come back as nested
-    dicts and lists of CPU tensors. Raises ``FileNotFoundError`` when
-    nothing is checkpointed, the typed :mod:`..ckpt.errors` when what
-    is there cannot be trusted, and ``NotImplementedError`` for a
-    sharded checkpoint.
+    the same structure; else a tree of the stored layout. Without
+    templates the trees come back as nested dicts and lists of CPU
+    tensors. A sharded (format 2) checkpoint restores through
+    ``ckpt.reader.restore_dir``: into a module, each parameter and state
+    tensor receives the region it holds (a ZeRO-3 shard, or the whole
+    leaf); ``target`` (a ``ckpt.reader.Target``) opts a template-free
+    restore into this rank's slices. Raises ``FileNotFoundError`` when
+    nothing is checkpointed and the typed :mod:`..ckpt.errors` when what
+    is there cannot be trusted.
     A closing barrier keeps a fast rank from deleting, by a later
     save's retention, a step a slower rank still reads."""
     from ..comm.collectives import barrier
@@ -687,6 +726,16 @@ def restore_checkpoint(ckpt_dir: str, step: Optional[int] = None,
             raise FileNotFoundError(
                 f"no complete checkpoint for step {step} under {ckpt_dir!r}")
         manifest = _load_manifest(d, step)
+        if manifest.get("format") == 2:
+            from ..ckpt import reader as _reader
+            return _reader.restore_dir(
+                d, manifest, like_params=like_params,
+                like_opt_state=like_opt_state, target=target,
+                rank=context.get_rank())
+        if target is not None:
+            raise ValueError(
+                "target= (slice restore) needs a sharded (format 2) "
+                f"checkpoint; step {step} is format 1")
         model = like_params if isinstance(like_params,
                                           torch.nn.Module) else None
         p_like = (jax_params(model, _meta) if model is not None

@@ -79,7 +79,13 @@ def test_importing_the_port_loads_no_jax():
             "distributed_pytorch_tpu_torch.optim.sharded.spmd, "
             "distributed_pytorch_tpu_torch.parallel.data_parallel, "
             "distributed_pytorch_tpu_torch.parallel.fsdp, "
-            "distributed_pytorch_tpu_torch.parallel.tensor\n"
+            "distributed_pytorch_tpu_torch.parallel.tensor, "
+            "distributed_pytorch_tpu_torch.parallel.front_door, "
+            "distributed_pytorch_tpu_torch.parallel.spmd, "
+            "distributed_pytorch_tpu_torch.ckpt.layout, "
+            "distributed_pytorch_tpu_torch.ckpt.manifest, "
+            "distributed_pytorch_tpu_torch.ckpt.writer, "
+            "distributed_pytorch_tpu_torch.ckpt.reader\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
             "m.startswith(('jax.', 'jaxlib.')) or "
             "m == 'distributed_pytorch_tpu' or "

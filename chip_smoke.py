@@ -3523,6 +3523,427 @@ def phase_serve_lm_example():
              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
 
 
+# ---------------------------------------------------------------------------
+# sequence, expert and pipeline parallelism (one card: world 1, a one-rank
+# NCCL group where a mesh is needed; world > 1 is proven over gloo CPU
+# ranks by the tests)
+# ---------------------------------------------------------------------------
+
+# benchmarks/mfu_transformer.py:90 LONGCTX: FLAGSHIP's widths at seq 4096
+LONGCTX = dict(vocab=32000, dim=768, n_layers=12, n_heads=12, max_seq=4096,
+               pos="learned")
+LONG_BATCH, LONG_SEQ = 2, 4096
+LONG_CORES = ("flash", "striped", "ulysses")
+LONG_TIMED_STEPS = 3
+SP_LOSS_RTOL = 2e-3           # each step's loss against the flash model's
+LONG_EXAMPLE = ["--device", "cuda", "--dim", "768", "--n-layers", "12",
+                "--n-heads", "12", "--seq-len", "4096", "--batch-size", "2",
+                "--bf16", "--steps", "4"]
+# the ring replay: 4 virtual ranks at LONGCTX's attention shape
+RING_N, RING_WINDOW = 4, 1024
+RING_SHAPE = (LONG_BATCH, 12, LONG_SEQ, 64)
+RING_CORES = {"causal": dict(), "window": dict(window=RING_WINDOW),
+              "striped": dict(striped=True)}
+RING_FWD_LAUNCHES = {"causal": RING_N * RING_N, "window": RING_N * 2,
+                     "striped": RING_N * RING_N}
+# the MoE LM: FLAGSHIP's widths, 8 experts, top-1, capacity 2.0
+MOE_LM = dict(TRAIN, n_experts=8, top_k=1, capacity_factor=2.0,
+              router="tokens")
+MOE_AUX_COEF = 0.01
+MOE_TIMED_STEPS = 3
+MOE_EXAMPLE = ["--device", "cuda", "--dim", "768", "--n-layers", "12",
+               "--n-heads", "12", "--seq-len", "1024", "--batch-size", "8",
+               "--n-experts", "8", "--bf16", "--steps", "4"]
+# the pipeline: FLAGSHIP's 12 blocks on one stage, 4 microbatches
+PIPE_MICRO, PIPE_STEPS = 4, 3
+PIPE_LOSS_RTOL, PIPE_GRAD_RTOL = 2e-3, 1e-2
+
+
+def one_rank_group(torch):
+    """A one-rank NCCL group and ``init_mesh`` over it (every axis of
+    size 1)."""
+    from distributed_pytorch_tpu_torch.runtime import context, env
+    from distributed_pytorch_tpu_torch.runtime.launcher import find_free_port
+    env.set("DPX_MASTER_PORT", find_free_port())
+    context.init_process_group(0, 1)
+    return context.init_mesh(dp=1)
+
+
+def train_arm(torch, tflash, step, model, state, batch, steps):
+    """1 warm-up and ``steps`` timed steps of ``step``: step ms, peak
+    memory, flash launches per step, the losses and the last metrics."""
+    st = [state]
+
+    def run():
+        out = step(model, st[0], batch)
+        st[0] = out.opt_state
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tflash.reset_launch_counts()
+    outs = [run()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs += [run() for _ in range(steps)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    per_step = {k: v / (1 + steps) for k, v in tflash.LAUNCHES.items()}
+    metrics = {k: float(v.detach().float().mean())
+               for k, v in outs[-1].metrics.items()}
+    return dict(step_ms=step_ms,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches_per_step=per_step, metrics=metrics,
+                losses=[float(o.loss) for o in outs])
+
+
+def phase_long_context(torch, port, tflash, device):
+    """LONGCTX through ``make_spmd_train_step`` (DTensor parameters and a
+    batch placed ``P("dp", "sp")``) with ``make_gspmd_ring_attn_fn`` at
+    sp 1 for each core, beside the same model with ``make_flash_attn_fn``;
+    then ``examples/train_long_context.py`` at LONGCTX's widths. Returns
+    each core's flash launches per step."""
+    from distributed_pytorch_tpu_torch.examples import train_long_context
+    from distributed_pytorch_tpu_torch.ops.losses import \
+        cross_entropy_per_example
+    from distributed_pytorch_tpu_torch.optim import adamw
+    from distributed_pytorch_tpu_torch.parallel import (
+        make_spmd_train_step, shard_batch_spec, shard_params)
+    from distributed_pytorch_tpu_torch.parallel.sequence import stripe_tokens
+    from distributed_pytorch_tpu_torch.parallel.spmd import \
+        make_gspmd_ring_attn_fn
+    from distributed_pytorch_tpu_torch.parallel.tensor import (
+        P, transformer_lm_param_specs)
+    from distributed_pytorch_tpu_torch.runtime import context
+
+    toks = torch.from_numpy(np.random.default_rng(13).integers(
+        0, LONGCTX["vocab"], (LONG_BATCH, LONG_SEQ + 1))).to(device)
+    mesh = one_rank_group(torch)
+    arms = {}
+    try:
+        for core in ("reference",) + LONG_CORES:
+            attn_fn = (tflash.make_flash_attn_fn() if core == "reference"
+                       else make_gspmd_ring_attn_fn(mesh, core=core))
+            # sp 1: the striped layout of one shard is the identity
+            positions = (stripe_tokens(torch.arange(LONG_SEQ, device=device),
+                                       1, axis=0)
+                         if core == "striped" else None)
+            model = port.TransformerLM(
+                dtype=torch.bfloat16, device=device, attn_fn=attn_fn,
+                generator=torch.Generator(device=device).manual_seed(0),
+                **LONGCTX)
+            model = shard_params(model, transformer_lm_param_specs(model),
+                                 mesh)
+
+            def loss_fn(m, batch, positions=positions):
+                x, y = batch
+                return cross_entropy_per_example(
+                    m(x, positions=positions), y).mean(), {}
+
+            opt = adamw(TRAIN_LR)
+            step = make_spmd_train_step(loss_fn, opt, donate=False)
+            batch = shard_batch_spec((toks[:, :-1], toks[:, 1:]), mesh,
+                                     P("dp", "sp"))
+            arms[core] = train_arm(torch, tflash, step, model,
+                                   opt.init(model.parameters()), batch,
+                                   LONG_TIMED_STEPS)
+            del model, step, batch
+            torch.cuda.empty_cache()
+        backend = context.get_backend()
+    finally:
+        context.destroy_process_group()
+    ref = arms["reference"]["losses"]
+    for core in LONG_CORES:
+        arms[core]["max_rel_loss_diff_vs_flash"] = max(
+            abs(a - b) / abs(b) for a, b in zip(arms[core]["losses"], ref))
+    tflash.reset_launch_counts()
+    t0 = time.perf_counter()
+    ex = train_long_context.main_worker(0, 1, LONG_EXAMPLE, quiet=True)
+    ex["wall_s"] = time.perf_counter() - t0
+    ex["launches"] = dict(tflash.LAUNCHES)
+    torch.cuda.empty_cache()
+    emit(phase="long_context", card=torch.cuda.get_device_name(0),
+         backend=backend, world=1, sp=1,
+         config=dict(LONGCTX, batch=LONG_BATCH, seq=LONG_SEQ,
+                     dtype="bfloat16", optimizer=f"adamw({TRAIN_LR})"),
+         warmup_steps=1, timed_steps=LONG_TIMED_STEPS, arms=arms,
+         loss_rtol=SP_LOSS_RTOL, example=ex)
+    want = {k: LONGCTX["n_layers"] for k in tflash.LAUNCHES}
+    for core, rec in arms.items():
+        if rec["launches_per_step"] != want:
+            fail(f"long_context {core}: launches per step "
+                 f"{rec['launches_per_step']}, expected {want}")
+        if not np.all(np.isfinite(rec["losses"])):
+            fail(f"long_context {core}: losses {rec['losses']}")
+        if core != "reference" and not (
+                rec["max_rel_loss_diff_vs_flash"] <= SP_LOSS_RTOL):
+            fail(f"long_context {core}: losses {rec['losses']} vs the "
+                 f"flash model's {ref}")
+    if not (len(ex["history"]) == 3 and np.all(np.isfinite(ex["history"]))):
+        fail(f"long_context: the example's losses {ex['history']}")
+    return {core: arms[core]["launches_per_step"] for core in LONG_CORES}
+
+
+def replay_ring(torch, seq, q, k, v, n, **kw):
+    """``parallel.sequence``'s ring of n ranks replayed on one card: rank
+    ``my``'s hops through ``_ring_flash`` with a shift that hands it the
+    block rank ``(my - t - 1) % n`` holds; the ranks' outputs and lse
+    concatenated along the sequence."""
+    s_loc = q.shape[2] // n
+
+    def blocks(t):
+        return [t[:, :, r * s_loc:(r + 1) * s_loc] for r in range(n)]
+    qs, ks, vs = blocks(q), blocks(k), blocks(v)
+    outs, lses = [], []
+    for my in range(n):
+        def shift(t, kt, vt, my=my):
+            src = (my - t - 1) % n
+            return ks[src], vs[src]
+        o, lse = seq._ring_flash(qs[my], ks[my], vs[my], my, n, shift,
+                                 causal=True, scale=None, **kw)
+        outs.append(o.to(q.dtype))
+        lses.append(lse)
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
+
+
+def phase_ring_hops(torch, tflash, device):
+    """The flash ring's hops of 4 virtual ranks at LONGCTX's attention
+    shape, through the module's own hop loop: the causal ring, the
+    window-1024 ring and the striped ring (compared after unstriping),
+    bf16 and f32, o / lse / dq / dk / dv against the full-sequence
+    kernel on the same mask. Returns each core's launches of each
+    kernel (bf16)."""
+    from distributed_pytorch_tpu_torch.parallel import sequence as seq
+    results, launches = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        gen = torch.Generator(device=device).manual_seed(17)
+        q, k, v, do = (torch.randn(RING_SHAPE, generator=gen, device=device)
+                       .to(dtype) for _ in range(4))
+        dl = torch.randn(RING_SHAPE[:3], generator=gen, device=device)
+        for core, kw in RING_CORES.items():
+            window = kw.get("window")
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            o_ref, lse_ref = tflash.flash_attention_with_lse(
+                *leaves, causal=True, window=window)
+            ((o_ref.float() * do.float()).sum()
+             + (lse_ref * dl).sum()).backward()
+            ref = [o_ref.detach(), lse_ref.detach()] + [
+                t.grad for t in leaves]
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            tflash.reset_launch_counts()
+            if core == "striped":
+                qs, ks, vs = (seq.stripe_tokens(t, RING_N, axis=2)
+                              for t in leaves)
+                o, lse = replay_ring(torch, seq, qs, ks, vs, RING_N, **kw)
+                o = seq.unstripe_tokens(o, RING_N, axis=2)
+                lse = seq.unstripe_tokens(lse, RING_N, axis=2)
+            else:
+                o, lse = replay_ring(torch, seq, *leaves, RING_N, **kw)
+            fwd = tflash.LAUNCHES["flash_attention_fwd"]
+            ((o.float() * do.float()).sum() + (lse * dl).sum()).backward()
+            torch.cuda.synchronize()
+            if dtype == torch.bfloat16:
+                launches[core] = dict(tflash.LAUNCHES)
+            got = [o.detach(), lse.detach()] + [t.grad for t in leaves]
+            errs = {}
+            for name, g, r in zip(("o", "lse", "dq", "dk", "dv"), got, ref):
+                scale = max(1.0, r.float().abs().max().item())
+                errs[name] = dict(
+                    max_abs_err=(g.float() - r.float()).abs().max().item(),
+                    scale=scale, finite=bool(torch.isfinite(g).all()))
+                if dtype == torch.bfloat16 and name != "lse":
+                    errs[name]["tile_rel_err"] = tile_rel_err(torch, g, r)
+            results[f"{core}_{dname}"] = dict(fwd_launches=fwd, errs=errs)
+    emit(phase="ring_hops", card=torch.cuda.get_device_name(0),
+         ranks=RING_N, shape=list(RING_SHAPE), window=RING_WINDOW,
+         tol=dict(bfloat16_tile_rel=BWD_TILE_TOL,
+                  float32_scaled=TOL["float32"], lse_scaled=TOL["float32"]),
+         results=results, launches=launches)
+    for key, rec in results.items():
+        core = key.rsplit("_", 1)[0]
+        if rec["fwd_launches"] != RING_FWD_LAUNCHES[core]:
+            fail(f"ring_hops {key}: {rec['fwd_launches']} forward launches,"
+                 f" expected {RING_FWD_LAUNCHES[core]}")
+        for name, e in rec["errs"].items():
+            if not e["finite"]:
+                fail(f"ring_hops {key}: {name} not finite")
+            if "tile_rel_err" in e:
+                ok = e["tile_rel_err"] <= BWD_TILE_TOL
+            else:
+                ok = e["max_abs_err"] <= TOL["float32"] * e["scale"]
+            if not ok:
+                fail(f"ring_hops {key}: {name} {e}")
+    return launches
+
+
+def phase_moe_lm(torch, port, tflash, device):
+    """``MoETransformerLM`` at FLAGSHIP's widths (8 experts, top-1,
+    capacity 2.0, the flash attn_fn) through ``make_spmd_train_step`` on
+    DTensors of ``model.param_specs()`` (ep 1); the first loss against
+    the same weights with dense attention; then
+    ``examples/train_moe_lm.py``. Returns the launches per step."""
+    from distributed_pytorch_tpu_torch.examples import train_moe_lm
+    from distributed_pytorch_tpu_torch.ops.losses import \
+        cross_entropy_per_example
+    from distributed_pytorch_tpu_torch.optim import adamw
+    from distributed_pytorch_tpu_torch.parallel import (
+        make_spmd_train_step, shard_batch_spec, shard_params)
+    from distributed_pytorch_tpu_torch.parallel.tensor import P
+    from distributed_pytorch_tpu_torch.runtime import context
+
+    def loss_fn(m, batch):
+        x, y = batch
+        logits, aux, metrics = m.forward_with_metrics(x)
+        nll = cross_entropy_per_example(logits, y).mean()
+        return nll + MOE_AUX_COEF * aux, {
+            "nll": nll, "drop_rate": metrics["drop_rate"],
+            "max_expert_load": metrics["expert_load"].max()}
+
+    def build(attn_fn):
+        return port.models.MoETransformerLM(
+            dtype=torch.bfloat16, device=device, attn_fn=attn_fn,
+            generator=torch.Generator(device=device).manual_seed(0),
+            **MOE_LM)
+
+    toks = train_tokens(torch, 14, TRAIN_BATCH, device)
+    dense = build(None)
+    with torch.no_grad():
+        dense_loss = float(loss_fn(dense, (toks[:, :-1], toks[:, 1:]))[0])
+    del dense
+    torch.cuda.empty_cache()
+    mesh = one_rank_group(torch)
+    try:
+        model = build(tflash.make_flash_attn_fn())
+        model = shard_params(model, model.param_specs(), mesh)
+        opt = adamw(TRAIN_LR)
+        step = make_spmd_train_step(loss_fn, opt, donate=False)
+        batch = shard_batch_spec((toks[:, :-1], toks[:, 1:]), mesh,
+                                 P("dp", None))
+        rec = train_arm(torch, tflash, step, model,
+                        opt.init(model.parameters()), batch,
+                        MOE_TIMED_STEPS)
+        del model, step, batch
+        torch.cuda.empty_cache()
+    finally:
+        context.destroy_process_group()
+    rec["dense_first_loss"] = dense_loss
+    rec["first_loss_rel_diff"] = abs(rec["losses"][0] - dense_loss) \
+        / abs(dense_loss)
+    tflash.reset_launch_counts()
+    t0 = time.perf_counter()
+    ex = train_moe_lm.main_worker(0, 1, MOE_EXAMPLE, quiet=True)
+    ex["wall_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    emit(phase="moe_lm", card=torch.cuda.get_device_name(0), world=1, ep=1,
+         config=dict(MOE_LM, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     dtype="bfloat16", optimizer=f"adamw({TRAIN_LR})",
+                     loss=f"nll + {MOE_AUX_COEF} aux"),
+         warmup_steps=1, timed_steps=MOE_TIMED_STEPS, loss_rtol=SP_LOSS_RTOL,
+         example=ex, **rec)
+    want = {k: MOE_LM["n_layers"] for k in tflash.LAUNCHES}
+    if rec["launches_per_step"] != want:
+        fail(f"moe_lm: launches per step {rec['launches_per_step']}, "
+             f"expected {want}")
+    if not np.all(np.isfinite(rec["losses"])):
+        fail(f"moe_lm: losses {rec['losses']}")
+    if not rec["first_loss_rel_diff"] <= SP_LOSS_RTOL:
+        fail(f"moe_lm: first loss {rec['losses'][0]} vs dense attention's "
+             f"{dense_loss}")
+    if not (len(ex["history"]) == 3 and np.all(np.isfinite(ex["history"]))):
+        fail(f"moe_lm: the example's losses {ex['history']}")
+    return rec["launches_per_step"]
+
+
+def phase_pipeline(torch, port, tflash, device):
+    """FLAGSHIP's 12 blocks stacked on one stage (pp 1), the embedding
+    and head outside, 4 microbatches of the batch of 8, under 1F1B and
+    GPipe: the loss and every stacked gradient against the unpipelined
+    blocks'. Returns each schedule's launches per step."""
+    from distributed_pytorch_tpu_torch.ops.losses import \
+        cross_entropy_per_example
+    from distributed_pytorch_tpu_torch.parallel.pipeline import (
+        make_pipeline_train_fn, make_stage_fn, stack_layer_params)
+    from distributed_pytorch_tpu_torch.runtime import context
+
+    model = port.TransformerLM(
+        dtype=torch.bfloat16, device=device,
+        attn_fn=tflash.make_flash_attn_fn(),
+        generator=torch.Generator(device=device).manual_seed(0), **TRAIN)
+    toks = train_tokens(torch, 15, TRAIN_BATCH, device)
+    with torch.no_grad():
+        x = model.embed(toks[:, :-1], torch.arange(TRAIN_SEQ, device=device))
+    y_tok = toks[:, 1:]
+
+    def loss_fn(h, tgt):
+        logits = model.project_vocab(model.ln_f(h))
+        return cross_entropy_per_example(logits, tgt).mean(dim=-1)
+
+    # the unpipelined blocks
+    h = x
+    for blk in model.blocks:
+        h = blk(h)
+    ref_loss = loss_fn(h, y_tok).mean()
+    ref_loss.backward()
+    ref_loss = float(ref_loss)
+    stack = stack_layer_params(model.blocks)
+    ref_grads = {n: torch.stack([dict(b.named_parameters())[n].grad
+                                 for b in model.blocks])
+                 for n, _ in stack.named_parameters()}
+    del h
+    model.zero_grad(set_to_none=True)
+    params = dict(stack.named_parameters())
+    stage_fn = make_stage_fn(stack)
+    arms = {}
+    for schedule in ("1f1b", "gpipe"):
+        fn = make_pipeline_train_fn(context.get_mesh(), stage_fn, loss_fn,
+                                    PIPE_MICRO, schedule=schedule)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tflash.reset_launch_counts()
+        loss, grads = fn(params, x, y_tok)
+        torch.cuda.synchronize()
+        per_step = dict(tflash.LAUNCHES)
+        t0 = time.perf_counter()
+        for _ in range(PIPE_STEPS):
+            fn(params, x, y_tok)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / PIPE_STEPS * 1e3
+        leaf = {n: ((grads[n].float() - r.float()).norm()
+                    / r.float().norm().clamp_min(1e-30)).item()
+                for n, r in ref_grads.items()}
+        arms[schedule] = dict(
+            loss=float(loss), loss_rel_diff=abs(float(loss) - ref_loss)
+            / abs(ref_loss), max_leaf_rel_err=max(leaf.values()),
+            worst_leaf=max(leaf, key=leaf.get), step_ms=step_ms,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches_per_step=per_step)
+        del grads
+        torch.cuda.empty_cache()
+    del model, stack, params, x
+    torch.cuda.empty_cache()
+    emit(phase="pipeline", card=torch.cuda.get_device_name(0), stages=1,
+         microbatches=PIPE_MICRO,
+         config=dict(TRAIN, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     dtype="bfloat16"),
+         ref_loss=ref_loss, loss_rtol=PIPE_LOSS_RTOL,
+         grad_rtol=PIPE_GRAD_RTOL, timed_steps=PIPE_STEPS, arms=arms)
+    layers = TRAIN["n_layers"] * PIPE_MICRO
+    want = {"gpipe": {k: layers for k in tflash.LAUNCHES},
+            "1f1b": dict({k: layers for k in tflash.LAUNCHES},
+                         flash_attention_fwd=2 * layers)}
+    for schedule, rec in arms.items():
+        if rec["launches_per_step"] != want[schedule]:
+            fail(f"pipeline {schedule}: launches {rec['launches_per_step']},"
+                 f" expected {want[schedule]}")
+        if not (rec["loss_rel_diff"] <= PIPE_LOSS_RTOL
+                and rec["max_leaf_rel_err"] <= PIPE_GRAD_RTOL):
+            fail(f"pipeline {schedule}: loss {rec['loss']} vs {ref_loss}, "
+                 f"worst leaf {rec['worst_leaf']} "
+                 f"{rec['max_leaf_rel_err']}")
+    return {s: rec["launches_per_step"] for s, rec in arms.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3613,6 +4034,13 @@ def main() -> int:
     # prefetch, eval, generation and a trace
     trainer_per_step = phase_lm_trainer(torch, tflash, device, step_ms)
 
+    # sequence parallelism (LONGCTX through the sp island, then the ring's
+    # hops of 4 virtual ranks), the MoE LM, the pipeline schedules
+    long_launches = phase_long_context(torch, port, tflash, device)
+    ring_launches = phase_ring_hops(torch, tflash, device)
+    moe_launches = phase_moe_lm(torch, port, tflash, device)
+    pipe_launches = phase_pipeline(torch, port, tflash, device)
+
     # bf16 at the serving prefill shape (ms, library_ms) and at the
     # FLAGSHIP train shape (train_*), with the design each one ran
     rows = {"flash_attention_fwd": dict(
@@ -3658,6 +4086,13 @@ def main() -> int:
         row["front_door_launches_per_step"] = {
             arm: per_step[name]
             for arm, per_step in front_door_launches.items()}
+        row["long_context_launches_per_step"] = {
+            core: per_step[name] for core, per_step in long_launches.items()}
+        row["ring_hops_launches"] = {
+            core: counts[name] for core, counts in ring_launches.items()}
+        row["moe_lm_launches_per_step"] = moe_launches[name]
+        row["pipeline_launches_per_step"] = {
+            s: per_step[name] for s, per_step in pipe_launches.items()}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=launches[name], **row)

@@ -26,8 +26,19 @@ block), :func:`quantized_reduce_scatter` and
 :func:`quantized_all_gather` (its two halves, ZeRO-1's legs), and
 :func:`quantized_pmean_wire_bytes`.
 
-Not ported yet: ``ppermute``, ``ring_shift`` and ``line_shift`` (the
-sequence- and pipeline-parallel transports).
+Point to point (the sequence- and pipeline-parallel transports):
+:func:`ppermute` (each rank sends its block to the rank a ``(src, dst)``
+pair names; a rank that no pair sends to receives zeros, as from
+``collective-permute``), :func:`ring_shift` (every block ``shift`` hops
+round the ring: ring attention's k/v) and :func:`line_shift` (``shift``
+hops along the line, no wraparound: a pipeline's activations go +1,
+its cotangents -1). Each posts all of a step's sends and receives
+together (``batch_isend_irecv``), so a ring cannot deadlock, and each is
+differentiable: its gradient is the inverse permutation, so autograd
+through a ring runs the reverse ring. :func:`all_to_all` is
+differentiable too (its gradient is the inverse all-to-all: Ulysses and
+the expert dispatch), and it and the point-to-point primitives take a
+``group`` as the others do.
 """
 
 from __future__ import annotations
@@ -133,24 +144,127 @@ def reduce_scatter(x: torch.Tensor, scatter_axis: int = 0,
     return out.movedim(0, scatter_axis)
 
 
+def _all_to_all_tiled(x, split_axis: int, concat_axis: int, group):
+    world = _world(group)
+    send = torch.stack(x.chunk(world, dim=split_axis)).contiguous()
+    recv = torch.empty_like(send)
+    tdist.all_to_all_single(recv, send, group=group)
+    return torch.cat(list(recv.unbind(0)), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all; its gradient is the all-to-all back (split
+    along ``concat_axis``, concatenated along ``split_axis``)."""
+
+    @staticmethod
+    def forward(ctx, x, split_axis, concat_axis, group):
+        ctx.axes, ctx.group = (split_axis, concat_axis), group
+        return _all_to_all_tiled(x, split_axis, concat_axis, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return (_all_to_all_tiled(g, concat_axis, split_axis, ctx.group),
+                None, None, None)
+
+
 def all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int,
-               tiled: bool = True) -> torch.Tensor:
+               tiled: bool = True, group=None) -> torch.Tensor:
     """``x`` cut into world chunks along ``split_axis``, chunk i sent to
     rank i; the chunks received, in rank order, concatenated along
-    ``concat_axis`` (``tiled``) or stacked on a new axis there."""
-    world = _world()
+    ``concat_axis`` (``tiled``) or stacked on a new axis there.
+    Differentiable: the gradient goes back by the inverse all-to-all."""
+    world = _world(group)
     if x.shape[split_axis] % world:
         raise ValueError(f"all_to_all needs axis {split_axis} "
                          f"({x.shape[split_axis]}) divisible by the world "
                          f"({world})")
     if world == 1:
         return x if tiled else x.unsqueeze(concat_axis)
-    send = torch.stack(x.chunk(world, dim=split_axis)).contiguous()
-    recv = torch.empty_like(send)
-    tdist.all_to_all_single(recv, send)
+    out = _AllToAll.apply(x, split_axis, concat_axis, group)
     if tiled:
-        return torch.cat(list(recv.unbind(0)), dim=concat_axis)
-    return recv.movedim(0, concat_axis)
+        return out
+    # the world chunks side by side on concat_axis -> a new axis there
+    shape = list(out.shape)
+    shape[concat_axis:concat_axis + 1] = [world, shape[concat_axis] // world]
+    return out.reshape(shape)
+
+
+def _peer(group, r: int) -> int:
+    """The global rank of ``group``'s rank ``r``."""
+    return r if group is None else tdist.get_global_rank(group, r)
+
+
+def _permute(x: torch.Tensor, pairs, group) -> torch.Tensor:
+    """``x`` sent along every ``(src, dst)`` pair of group ranks; what
+    this rank receives, zeros where no pair sends to it. All of this
+    rank's sends and receives are posted together."""
+    me = axis_index(group)
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    for src, dst in pairs:
+        if src == me and dst == me:
+            out = x.clone()
+        elif src == me:
+            ops.append(tdist.P2POp(tdist.isend, x, _peer(group, dst), group))
+        elif dst == me:
+            ops.append(tdist.P2POp(tdist.irecv, out, _peer(group, src),
+                                   group))
+    if ops:
+        for req in tdist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+class _Permute(torch.autograd.Function):
+    """:func:`_permute`, whose gradient is the inverse permutation."""
+
+    @staticmethod
+    def forward(ctx, x, pairs, group):
+        ctx.pairs, ctx.group = pairs, group
+        return _permute(x, pairs, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = tuple((dst, src) for src, dst in ctx.pairs)
+        return _permute(g, inverse, ctx.group), None, None
+
+
+def ppermute(x: torch.Tensor, perm, group=None) -> torch.Tensor:
+    """Point to point: every ``(src, dst)`` pair of ``perm`` (ranks of
+    ``group``) sends rank src's ``x`` to rank dst; a rank no pair sends
+    to gets zeros (``collective-permute``). No rank may receive twice.
+    Differentiable: the gradient goes back along the inverted pairs."""
+    pairs = tuple((int(s), int(d)) for s, d in perm)
+    dsts = [d for _, d in pairs]
+    if len(set(dsts)) != len(dsts):
+        raise ValueError(f"ppermute: a rank receives twice in {pairs}")
+    return _Permute.apply(x, pairs, group)
+
+
+def ring_shift(x: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
+    """Every rank's block ``shift`` hops round the ring of ``group``: rank
+    i's lands on rank ``(i + shift) % n`` (ring attention's k/v
+    transport). At one rank, ``x`` itself."""
+    n = _world(group)
+    if n == 1:
+        return x
+    return ppermute(x, [(i, (i + shift) % n) for i in range(n)], group)
+
+
+def line_shift(x: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
+    """Every rank's block ``shift`` hops along the line of ``group``, with
+    no wraparound: a rank with no sender gets zeros (a pipeline's
+    transport: activations +1, cotangents -1)."""
+    n = _world(group)
+    if shift >= 0:
+        perm = [(i, i + shift) for i in range(n - shift)]
+    else:
+        perm = [(i, i + shift) for i in range(-shift, n)]
+    if n == 1:
+        return x.clone() if perm else torch.zeros_like(x)
+    return ppermute(x, perm, group)
 
 
 def quantized_pmean_wire_bytes(n: int, world: int,

@@ -1,7 +1,9 @@
-"""Move ``TransformerLM``, ``DummyModel`` and ``ResNet18`` params between
-the JAX param tree and the port's modules: ``from_jax_params`` loads,
-``to_jax_params`` reads back; ``from_jax_state`` / ``to_jax_state`` do
-the same for ``ResNet18``'s BatchNorm running stats.
+"""Move ``TransformerLM``, ``MoETransformerLM``, ``DummyModel`` and
+``ResNet18`` params, and stacked blocks (``parallel.pipeline
+.stack_layer_params``), between the JAX param tree and the port's
+modules: ``from_jax_params`` loads, ``to_jax_params`` reads back;
+``from_jax_state`` / ``to_jax_state`` do the same for ``ResNet18``'s
+BatchNorm running stats.
 
 The JAX package's params are a nested dict/list pytree (what
 ``TransformerLM.init`` returns); pass it with every leaf as a numpy
@@ -15,6 +17,13 @@ array (``jax.tree_util.tree_map(np.asarray, params)``). Layout changes:
 - conv kernels are HWIO in JAX and OIHW here: permuted (3, 2, 0, 1);
 - with tied embeddings there is no head: the port's vocab projection
   reads the token table, as the JAX package's does;
+- an MoE layer's expert banks (``fc1`` / ``fc2``: W (E, D, H) / (E, H,
+  D), b (E, H) / (E, D)) keep the JAX layout and copy as they are; its
+  gate and shared experts are Linears (the gate has no bias);
+- a stack of blocks (a block module whose parameters carry a leading
+  layer axis, ``n_stacked`` set) maps onto the JAX package's
+  ``stack_layer_params`` tree of the same blocks: every leaf keeps the
+  leading axis, and a Linear W swaps its last two axes;
 - an int8 tree (``ops.quant.quantize_tree`` of the JAX package:
   ``{"w_q", "w_scale"}``, ``{"emb_q", "emb_scale"}``) loads into int8
   buffers (the port's ``quantize_tree`` form) and reads back the same
@@ -42,8 +51,8 @@ _TO_OIHW, _TO_HWIO = (3, 2, 0, 1), (2, 3, 1, 0)
 def _copy(dst: torch.Tensor, src, transpose: bool = False,
           perm=None) -> None:
     arr = np.asarray(src)
-    if transpose:
-        arr = arr.T
+    if transpose and arr.ndim >= 2:
+        arr = arr.swapaxes(-1, -2)
     if perm is not None:
         arr = arr.transpose(perm)
     if tuple(arr.shape) != tuple(dst.shape):
@@ -119,8 +128,9 @@ def _put(tree, path, value):
 
 
 def from_jax_params(params_np: Mapping[str, Any], model):
-    """Copy the JAX param tree into ``model`` (a ``TransformerLM``, a
-    ``DummyModel`` or a ``ResNet18``) in place; returns it."""
+    """Copy the JAX param tree into ``model`` (a ``TransformerLM``, an
+    ``MoETransformerLM``, an ``MoELayer``, a ``DummyModel``, a
+    ``ResNet18`` or a stack of blocks) in place; returns it."""
     if isinstance(model, ResNet18):
         for path, mod in _resnet_modules(model):
             p = _get(params_np, path)
@@ -135,6 +145,13 @@ def from_jax_params(params_np: Mapping[str, Any], model):
         _linear(model.lin1, params_np["lin1"])
         _linear(model.lin2, params_np["lin2"])
         return model
+    if getattr(model, "n_stacked", None) is not None:
+        _block(model, params_np)
+        return model
+    from .parallel.moe import MoELayer
+    if isinstance(model, MoELayer):
+        _moe(model, params_np)
+        return model
     _weight(model.tok, params_np["tok"], "emb", transpose=False)
     if model.pos is not None:
         _weight(model.pos, params_np["pos"], "emb", transpose=False)
@@ -142,16 +159,35 @@ def from_jax_params(params_np: Mapping[str, Any], model):
         raise ValueError(f"{len(params_np['blocks'])} JAX blocks for a "
                          f"{len(model.blocks)}-layer model")
     for blk, p in zip(model.blocks, params_np["blocks"]):
-        _norm(blk.ln1, p["ln1"])
-        _linear(blk.attn.qkv, p["attn"]["qkv"])
-        _linear(blk.attn.out, p["attn"]["out"])
-        _norm(blk.ln2, p["ln2"])
-        _linear(blk.fc1, p["fc1"])
-        _linear(blk.fc2, p["fc2"])
+        _block(blk, p)
     _norm(model.ln_f, params_np["ln_f"])
     if model.head is not None:
         _linear(model.head, params_np["head"])
     return model
+
+
+def _moe(moe, q: Mapping[str, Any]) -> None:
+    _linear(moe.gate, q["gate"])
+    for name in ("fc1", "fc2"):
+        _copy(getattr(moe, name).weight, q[name]["w"])
+        _copy(getattr(moe, name).bias, q[name]["b"])
+    if moe.shared is not None:
+        _linear(moe.shared.fc1, q["shared"]["fc1"])
+        _linear(moe.shared.fc2, q["shared"]["fc2"])
+
+
+def _block(blk, p: Mapping[str, Any]) -> None:
+    """One transformer or MoE block (or a stack of them) from its JAX
+    tree."""
+    _norm(blk.ln1, p["ln1"])
+    _linear(blk.attn.qkv, p["attn"]["qkv"])
+    _linear(blk.attn.out, p["attn"]["out"])
+    _norm(blk.ln2, p["ln2"])
+    if hasattr(blk, "moe"):
+        _moe(blk.moe, p["moe"])
+    else:
+        _linear(blk.fc1, p["fc1"])
+        _linear(blk.fc2, p["fc2"])
 
 
 def _leaf(param: torch.Tensor, grads: bool, transpose: bool = False,
@@ -163,8 +199,8 @@ def _leaf(param: torch.Tensor, grads: bool, transpose: bool = False,
     if t.dtype == torch.bfloat16:       # numpy has no bfloat16
         t = t.to(torch.float32)
     arr = t.numpy()
-    if transpose:
-        arr = arr.T
+    if transpose and arr.ndim >= 2:
+        arr = arr.swapaxes(-1, -2)
     if perm is not None:
         arr = arr.transpose(perm)
     return np.ascontiguousarray(arr)
@@ -207,13 +243,35 @@ def _jax_tree(model, leaf):
             _put(tree, path, node)
         return tree
 
+    def moe_tree(moe):
+        node = {"gate": linear(moe.gate)}
+        for name in ("fc1", "fc2"):
+            bank = getattr(moe, name)
+            node[name] = {"w": leaf(bank.weight, False, None),
+                          "b": leaf(bank.bias, False, None)}
+        if moe.shared is not None:
+            node["shared"] = {"fc1": linear(moe.shared.fc1),
+                              "fc2": linear(moe.shared.fc2)}
+        return node
+
+    def block(blk):
+        node = {"ln1": norm(blk.ln1),
+                "attn": {"qkv": linear(blk.attn.qkv),
+                         "out": linear(blk.attn.out)},
+                "ln2": norm(blk.ln2)}
+        if hasattr(blk, "moe"):
+            node["moe"] = moe_tree(blk.moe)
+        else:
+            node.update(fc1=linear(blk.fc1), fc2=linear(blk.fc2))
+        return node
+
+    if getattr(model, "n_stacked", None) is not None:
+        return block(model)
+    from .parallel.moe import MoELayer
+    if isinstance(model, MoELayer):
+        return moe_tree(model)
     tree = {"tok": weight(model.tok, "emb", False),
-            "blocks": [{"ln1": norm(blk.ln1),
-                        "attn": {"qkv": linear(blk.attn.qkv),
-                                 "out": linear(blk.attn.out)},
-                        "ln2": norm(blk.ln2),
-                        "fc1": linear(blk.fc1), "fc2": linear(blk.fc2)}
-                       for blk in model.blocks],
+            "blocks": [block(blk) for blk in model.blocks],
             "ln_f": norm(model.ln_f)}
     if model.pos is not None:
         tree["pos"] = weight(model.pos, "emb", False)
@@ -238,17 +296,19 @@ class ParamSlot:
     index: int                  # its position in ``model.parameters()``
     transpose: bool             # a Linear W: (out, in) here, (in, out) there
     perm: Optional[tuple]       # a conv kernel: OIHW here -> HWIO there
+    lead: int = 0               # leading stack axes (a stack of blocks)
 
     def to_jax(self, t: torch.Tensor) -> torch.Tensor:
-        """A tensor laid out like the parameter, in the JAX layout."""
-        if self.transpose:
-            return t.t()
+        """A tensor laid out like the parameter, in the JAX layout (a
+        vector, such as a factored statistic, as it is)."""
+        if self.transpose and t.dim() >= 2:
+            return t.transpose(-1, -2)
         return t.permute(self.perm) if self.perm is not None else t
 
     def from_jax(self, t: torch.Tensor) -> torch.Tensor:
         """The inverse of :meth:`to_jax`."""
-        if self.transpose:
-            return t.t()
+        if self.transpose and t.dim() >= 2:
+            return t.transpose(-1, -2)
         if self.perm is not None:
             return t.permute(_TO_OIHW)
         return t
@@ -256,8 +316,8 @@ class ParamSlot:
     def port_dim(self, jax_dim: int) -> int:
         """The parameter's dimension that is dimension ``jax_dim`` of its
         JAX leaf."""
-        if self.transpose:
-            return 1 - jax_dim
+        if self.transpose and jax_dim >= self.lead:
+            return 2 * self.lead + 1 - jax_dim
         return self.perm[jax_dim] if self.perm is not None else jax_dim
 
 
@@ -266,8 +326,9 @@ def jax_param_slots(model):
     leaf: the map between the port's parameter list (the order of
     optimizer states) and the JAX package's param paths."""
     index = {id(p): i for i, p in enumerate(model.parameters())}
+    lead = 1 if getattr(model, "n_stacked", None) is not None else 0
     return _jax_tree(model, lambda p, transpose, perm: ParamSlot(
-        index[id(p)], transpose, perm))
+        index[id(p)], transpose, perm, lead))
 
 
 def spec_placements(spec, slot: ParamSlot, mesh_axes) -> tuple:

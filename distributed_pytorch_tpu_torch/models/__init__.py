@@ -3,7 +3,9 @@
 would shadow the submodule."""
 
 from .mlp import DummyModel
+from .moe_lm import MoEBlock, MoETransformerLM
 from .resnet import BasicBlock, ResNet18
 from .transformer import TransformerLM
 
-__all__ = ["BasicBlock", "DummyModel", "ResNet18", "TransformerLM"]
+__all__ = ["BasicBlock", "DummyModel", "MoEBlock", "MoETransformerLM",
+           "ResNet18", "TransformerLM"]

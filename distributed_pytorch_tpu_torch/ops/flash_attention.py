@@ -489,17 +489,16 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-class SequenceShardedInput(NotImplementedError):
-    """Attention (or a step's batch) sharded along the sequence:
-    sequence parallelism is ROADMAP.md Queue A item 5.5."""
-
-
 def _local_flash(q, k, v, kw):
     """Attention of DTensor q, k, v (B, H, S, D) on their local shards:
     under batch or head sharding (or replication) every row's keys are
     local, so the kernel runs on ``to_local()`` and the outputs come back
-    as DTensors of the same placements (both differentiable)."""
-    from torch.distributed.tensor import DTensor
+    as DTensors of the same placements (both differentiable). A q
+    sharded along the sequence (or the head size) is gathered over those
+    mesh dimensions first and the outputs cut back to its placements, as
+    the JAX package's partitioner gathers around its kernel; sequence
+    parallelism proper is ``parallel.spmd.make_gspmd_ring_attn_fn``."""
+    from torch.distributed.tensor import DTensor, Replicate
     pl = tuple(q.placements)
     for t in (k, v):
         if not isinstance(t, DTensor) or tuple(t.placements) != pl \
@@ -507,18 +506,23 @@ def _local_flash(q, k, v, kw):
             raise ValueError("flash attention takes q, k and v as DTensors "
                              "of one mesh and placement")
     for p in pl:
-        if p.is_shard() and p.dim >= 2:
-            raise SequenceShardedInput(
-                f"flash attention over q sharded on dimension {p.dim} "
-                f"({pl}): sequence parallelism is not ported yet "
-                "(ROADMAP.md Queue A item 5.5)")
         if p.is_partial():
             raise ValueError(f"flash attention of a partial q ({pl})")
+    mesh = q.device_mesh
+    run = tuple(Replicate() if p.is_shard() and p.dim >= 2 else p
+                for p in pl)
+    if run != pl:
+        q, k, v = (t.redistribute(mesh, run) for t in (q, k, v))
     o, lse = _FlashAttention.apply(q.to_local(), k.to_local(),
                                    v.to_local(), kw)
-    mesh = q.device_mesh
-    return (DTensor.from_local(o, mesh, pl, run_check=False),
-            DTensor.from_local(lse, mesh, pl, run_check=False))
+    o = DTensor.from_local(o, mesh, run, run_check=False)
+    lse = DTensor.from_local(lse, mesh, run, run_check=False)
+    if run != pl:
+        o = o.redistribute(mesh, pl)
+        lse = lse.redistribute(
+            mesh, tuple(Replicate() if p.is_shard() and p.dim == 3 else p
+                        for p in pl))
+    return o, lse
 
 
 def _validate(causal, window, causal_offset, diag_offset):

@@ -13,7 +13,8 @@ Parallelism is a spec choice, resolved to the engine that runs it::
                         data_parallel.py, every wire mode)
     specs=FROM_INPUTS   the layout carried by the inputs: parameters the
                         caller placed as DTensors, the batch a DTensor
-                        sharded over "dp"; one global scalar loss
+                        sharded over "dp" (and over "sp" along the
+                        sequence); one global scalar loss
     specs=StepSpecs(..) the constraint ladder: ZeRO-3/2/1 (and tp under
                         ZeRO-3) from the spec trees (fsdp.py's engines)
     weight_update=      ZeRO-1 on the flat bucket (optim/sharded/)
@@ -61,7 +62,6 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.flash_attention import SequenceShardedInput
 from ..optim import Optimizer
 from ..runtime import context
 from ..runtime import env as _env
@@ -521,22 +521,17 @@ def _build_stacked_dp(step, loss_fn, optimizer, *, wire, mp):
 
 
 def _batch_mesh(batch):
-    """The mesh of the batch's DTensors (None for a plain batch); a batch
-    sharded along any dimension but the first raises
-    :class:`SequenceShardedInput`."""
+    """The mesh of the batch's DTensors (None for a plain batch). Any
+    layout is taken: a batch sharded along the sequence (``P("dp",
+    "sp")``) runs token-wise layers on its local shards and attention
+    through the model's ``attn_fn`` (the sp island of
+    ``spmd.make_gspmd_ring_attn_fn``, or the flash kernel on the
+    gathered sequence)."""
     from torch.distributed.tensor import DTensor
     found = []
 
     def walk(node):
         if isinstance(node, DTensor):
-            for p in node.placements:
-                if p.is_shard() and p.dim != 0:
-                    raise SequenceShardedInput(
-                        f"a FROM_INPUTS batch sharded on dimension "
-                        f"{p.dim} ({tuple(node.placements)}): sequence "
-                        "parallelism is not ported yet (ROADMAP.md Queue "
-                        "A item 5.5); shard the batch over dp on "
-                        "dimension 0")
             found.append(node.device_mesh)
         elif isinstance(node, (list, tuple)):
             for v in node:
@@ -769,7 +764,7 @@ def make_eval_step(eval_fn: Callable, *, like=None, mesh=None) -> Callable:
 
 
 __all__ = ["FROM_INPUTS", "FrontDoorStep", "HandoffMismatch",
-           "MemoryAnalysisUnavailable", "SequenceShardedInput", "Sharding",
+           "MemoryAnalysisUnavailable", "Sharding",
            "StepSpecs", "WEIGHT_UPDATES", "cache_clear", "cache_info",
            "handoff_shardings", "make_eval_step", "make_step",
            "sharding_of", "verify_handoff"]

@@ -9,8 +9,10 @@ JAX layout's dimensions and the JAX axis names; ``convert.spec_placements``
 maps a leaf onto the placement of the port's parameter.
 
 On the TPU the layout is the program: GSPMD inserts the collectives. Here
-:func:`shard_params` places each parameter as a DTensor on the mesh
-dimensions its spec names, and :func:`tensor_parallel_lm` also makes the
+:func:`shard_params` places each parameter as a DTensor on the mesh's
+axes of more than one rank (:func:`layout_mesh`, where
+``spmd.shard_batch_spec`` places the batch), and
+:func:`tensor_parallel_lm` places them on the ``tp`` axis and makes the
 model's forward the Megatron one over the ``tp`` group, on each rank's
 local shards (plain tensors: the flash kernels never see a DTensor):
 
@@ -182,32 +184,45 @@ def sub_mesh(mesh, axes):
     return mesh[names if len(names) > 1 else names[0]]
 
 
-def layout_mesh(mesh, axes):
-    """The sub-mesh a layout over ``axes`` lives on: those axes, or the
-    ``dp`` axis when there are none (a replicated layout). DTensor's
-    sharding propagation slows steeply with the mesh's dimensions, so a
-    layout never spans the axes it does not use."""
+def layout_mesh(mesh):
+    """The sub-mesh every layout lives on: the axes of ``mesh`` with more
+    than one rank (``dp`` when there are none). Parameters and batches
+    placed on it share one mesh, so DTensor computes between them
+    whatever axes each names; a one-rank axis places nothing, and
+    DTensor's sharding propagation slows steeply with the mesh's
+    dimensions."""
+    names = tuple(mesh.mesh_dim_names or ())
+    axes = tuple(n for i, n in enumerate(names) if mesh.size(i) > 1)
     if not axes:
-        names = tuple(mesh.mesh_dim_names or ())
-        axes = ("dp",) if "dp" in names else names
+        axes = ("dp",) if "dp" in names else names[:1]
     return sub_mesh(mesh, axes)
+
+
+def layout_placements(spec, slot, mesh, sub) -> tuple:
+    """``convert.spec_placements`` of ``spec`` over ``mesh``, kept for the
+    dimensions of its sub-mesh ``sub`` (:func:`layout_mesh`; the axes
+    left out have one rank, where every placement is the same)."""
+    names = tuple(mesh.mesh_dim_names)
+    full = spec_placements(spec, slot, names)
+    return tuple(full[names.index(n)] for n in sub.mesh_dim_names)
 
 
 def shard_params(model: nn.Module, specs, mesh) -> nn.Module:
     """Place ``model``'s parameters onto ``mesh`` per the spec tree: each
-    becomes a DTensor on the sub-mesh of the axes the tree names (of
-    ``dp``, replicated, when it names none; :func:`layout_mesh`), in
-    place, the module's parameters replaced; returns the module. A
-    parameter shared by several modules is placed once."""
+    becomes a DTensor on :func:`layout_mesh`'s sub-mesh, in place, the
+    module's parameters replaced; returns the module. A parameter
+    shared by several modules is placed once."""
+    return _place(model, specs, mesh, layout_mesh(mesh))
+
+
+def _place(model: nn.Module, specs, mesh, sub) -> nn.Module:
     from torch.distributed.tensor import distribute_tensor
-    sub = layout_mesh(mesh, spec_axes(specs))
-    names = tuple(sub.mesh_dim_names)
     placed = {}
     for (slot, spec), p in zip(specs_by_param(model, specs),
                                model.parameters()):
         placed[id(p)] = nn.Parameter(
             distribute_tensor(p.detach(), sub,
-                              spec_placements(spec, slot, names)),
+                              layout_placements(spec, slot, mesh, sub)),
             requires_grad=p.requires_grad)
     for mod in model.modules():
         for name, p in list(mod._parameters.items()):
@@ -423,7 +438,8 @@ def tensor_parallel_lm(model, mesh, tp_axis: str = "tp"):
     bad = {k: v for k, v in widths.items() if v % size}
     if bad:
         raise ValueError(f"tp={size} does not divide {bad}")
-    shard_params(model, transformer_lm_param_specs(model, tp_axis), mesh)
+    _place(model, transformer_lm_param_specs(model, tp_axis), mesh,
+           sub_mesh(mesh, (tp_axis,)))
     model._tp = tp
     model.forward = types.MethodType(_tp_lm_forward, model)
     for b in model.blocks:

@@ -192,11 +192,17 @@ def matrix_worker(rank, world, out_dir, mlp_params, batch, lm_params,
     out = lstep(tm, opt.init(tm.parameters()),
                 shard_batch_spec(tok, mesh, P("dp")))
     rec["from_inputs_lm"] = float(out.loss)
-    try:
-        lstep(tm, out.opt_state, shard_batch_spec(tok, mesh, P(None, "dp")))
-        rec["seq_sharded"] = None
-    except NotImplementedError as e:
-        rec["seq_sharded"] = (type(e).__name__, str(e))
+    # the same batch sharded along the sequence: the flash kernel runs
+    # on the gathered sequence, two steps from the same weights
+    tm = lm(lm_params, attn_fn=make_flash_attn_fn(min_seq_flash=0))
+    tm = shard_params(tm, replicated_specs(tm), mesh)
+    seq = shard_batch_spec(tok, mesh, P(None, "dp"))
+    state = opt.init(tm.parameters())
+    rec["seq_sharded"] = []
+    for _ in range(2):
+        out = lstep(tm, state, seq)
+        state = out.opt_state
+        rec["seq_sharded"].append(float(out.loss))
 
     # the handoff chain: train -> eval -> serve admit, nothing resharded
     counts, restore = _count_reshards()

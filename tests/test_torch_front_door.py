@@ -22,8 +22,9 @@ package's.
   (the port's world-1 step on the whole batch; the exact points at rtol
   1e-5 atol 1e-6, the quantized wires at the JAX suite's bounds), one
   build per point (per width under ``adaptive``), out == in shardings
-  for every engine; the flash path of a TransformerLM on DTensors, and a
-  sequence-sharded batch refused naming ROADMAP item 5.5; the train ->
+  for every engine; the flash path of a TransformerLM on DTensors, and
+  the same batch sharded along the sequence (two steps: JAX's loss,
+  then the plain step's after one update); the train ->
   eval -> serve-admit chain with zero ``redistribute`` / ``full_tensor``
   calls, a mis-placed model refused by the engine, ``generate`` and the
   eval; the ZeRO-3 eval pinned to the step's tree of shardings. These
@@ -357,8 +358,17 @@ def test_world2_from_inputs_tracks_the_oracle(matrix):
         model, opt.init(model.parameters()), torch.from_numpy(tokens))
     np.testing.assert_allclose(matrix["from_inputs_lm"],
                                float(out.loss[0]), **EXACT)
-    kind, msg = matrix["seq_sharded"]
-    assert kind == "SequenceShardedInput" and "item 5.5" in msg
+    # the batch sharded along the sequence trains as JAX's step does:
+    # its first loss is JAX's on the same weights and tokens, its second
+    # the plain step's after one update
+    jm = jmodels.TransformerLM(**fw.LM)
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    jax_loss = float(jax_ce(jm.apply(lm_params, x).reshape(-1, fw.LM["vocab"]),
+                            y.reshape(-1)))
+    out2 = make_step(fw.lm_loss, opt, donate=False)(
+        model, out.opt_state, torch.from_numpy(tokens))
+    np.testing.assert_allclose(matrix["seq_sharded"],
+                               [jax_loss, float(out2.loss[0])], **EXACT)
 
 
 def test_world2_handoff_chain_moves_nothing(matrix):

@@ -85,7 +85,13 @@ def test_importing_the_port_loads_no_jax():
             "distributed_pytorch_tpu_torch.ckpt.layout, "
             "distributed_pytorch_tpu_torch.ckpt.manifest, "
             "distributed_pytorch_tpu_torch.ckpt.writer, "
-            "distributed_pytorch_tpu_torch.ckpt.reader\n"
+            "distributed_pytorch_tpu_torch.ckpt.reader, "
+            "distributed_pytorch_tpu_torch.parallel.sequence, "
+            "distributed_pytorch_tpu_torch.parallel.moe, "
+            "distributed_pytorch_tpu_torch.parallel.pipeline, "
+            "distributed_pytorch_tpu_torch.models.moe_lm, "
+            "distributed_pytorch_tpu_torch.examples.train_long_context, "
+            "distributed_pytorch_tpu_torch.examples.train_moe_lm\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
             "m.startswith(('jax.', 'jaxlib.')) or "
             "m == 'distributed_pytorch_tpu' or "

@@ -260,13 +260,36 @@ non-zero at once:
               at dp = 2 rank 0 reading about half the bytes.
 ``lm_trainer`` also runs the save / resume pair with ``--sharded-ckpt``
 (runs 5 and 6): the resumed losses must equal run 3's exactly.
+32. obs (last, after ``pipeline``) — the observability layer at FLAGSHIP
+              width: ns per span (tracing off, on with the ring only, on
+              with the line-JSON sink) and per counter increment
+              (metrics off and on) through ``perfbench.stats.measure``;
+              (a) ``make_step``'s host door in a one-rank ``"host"``
+              group, 3 steps untraced, then from the same weights 3
+              with ``DPX_TRACE`` on and a snapshot every step: losses
+              equal bit for bit, each step one ``host_step`` with one
+              ``backward``, a ``bucket`` holding one
+              ``comm:allreduce_sum``, one ``update``; ``check_log``
+              clean, every snapshot valid, the Chrome trace's pid the
+              rank, ``HealthMonitor(DEFAULT_RULES)`` ok; (b) the
+              monolithic engine on serve_paged's 8 greedy requests,
+              traced and untraced: streams equal, one ``serve.request``
+              root per request whose queue + prefill children telescope
+              to its TTFT within 1 us; (c) one traced FLAGSHIP
+              ``CheckpointManager`` save: ``ckpt.save`` / ``ckpt.io`` /
+              ``ckpt.commit``, ``ckpt.saves`` 1; (d) ``adamw_8bit``
+              under ZeRO-3 (FSDP2 DTensors on a one-rank NCCL mesh)
+              against the replicated step, 4 steps: losses and the
+              gathered int8 codes and scales equal bit for bit, state
+              bytes beside adamw's. 12/12/12 launches per step in (a)
+              and (d).
 
 Then the ``kernels`` line (each kernel's design, ``wgmma+tma`` or
 ``scalar_fma``, as its bf16 path runs it; the forward at both shapes and
 its launches in ``serve_kvq``, ``serve_spec``, ``serve_int8``,
 ``serve_disagg`` and ``serve_fleet``; every row's launches per step in
-each ``host_ddp``, ``fsdp`` and ``front_door`` arm), the nvidia-smi
-line and, last, the
+each ``host_ddp``, ``fsdp`` and ``front_door`` arm, and in ``obs``),
+the nvidia-smi line and, last, the
 result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -3944,6 +3967,390 @@ def phase_pipeline(torch, port, tflash, device):
     return {s: rec["launches_per_step"] for s, rec in arms.items()}
 
 
+# -- observability: dpxtrace / dpxmon over the host door, the serve engine,
+# a checkpoint, and adamw_8bit on the ZeRO ladder ----------------------------
+
+OBS_STEPS = 3
+OBS_SPAN_N = 20000             # spans per trial of the overhead measure
+OBS_8BIT_STEPS = 4
+TELESCOPE_TOL_S = 1e-6         # serve children vs TTFT (host stamps)
+
+
+def obs_overhead(trace, metrics, stats, log_dir) -> dict:
+    """ns per span with tracing off, on with the ring only and on with
+    the line-JSON sink, and ns per counter increment with metrics off and
+    on: the JAX package's ``bench.py`` ``bench_obs_overhead``, through
+    the port's ``perfbench.stats.measure`` (warm-up discard, median,
+    IQR)."""
+    def per_call(fn):
+        def run():
+            t0 = time.perf_counter_ns()
+            for _ in range(OBS_SPAN_N):
+                fn()
+            return (time.perf_counter_ns() - t0) / OBS_SPAN_N
+        return run
+
+    def one_span():
+        with trace.span("bench.op", b=1):
+            pass
+
+    out = {}
+    log = os.path.join(log_dir, "overhead_spans.jsonl")
+    for name, kw in (("off", dict(enabled=False)),
+                     ("on_ring", dict(enabled=True, ring=256, log_path=None)),
+                     ("on_log", dict(enabled=True, ring=256, log_path=log))):
+        trace.reset()
+        trace.configure(**kw)
+        out[f"span_ns_{name}"] = stats.measure(per_call(one_span)).to_dict()
+    trace.reset()
+    for name, on in (("off", False), ("on", True)):
+        metrics.reset()
+        metrics.configure(enabled=on, rank=0)
+        out[f"inc_ns_{name}"] = stats.measure(per_call(
+            lambda: metrics.inc("bench.counter"))).to_dict()
+    metrics.reset()
+    return out
+
+
+def obs_host_door(torch, port, tflash, device, trace, metrics, log):
+    """FLAGSHIP through ``make_step``'s host door (a one-rank ``"host"``
+    group) for OBS_STEPS steps with tracing and metrics off, then from
+    the same weights and a fresh state with ``DPX_TRACE`` on and a
+    snapshot every step into ``log``: per run the step ms (steps 2..N),
+    the losses and the flash launches per step."""
+    from distributed_pytorch_tpu_torch.optim import adamw
+    from distributed_pytorch_tpu_torch.parallel import make_step
+    from distributed_pytorch_tpu_torch.runtime import context, env
+    from distributed_pytorch_tpu_torch.runtime.launcher import find_free_port
+    env.set("DPX_MASTER_PORT", find_free_port())
+    env.set("DPX_METRICS_LOG", log)
+    # fresh state first: the host comm registers its `comm` provider and
+    # stamps the rank at init
+    trace.reset()
+    metrics.reset()
+    context.init_process_group(0, 1, backend="host")
+    runs = {}
+    try:
+        model = port.TransformerLM(
+            dtype=torch.bfloat16, device=device,
+            attn_fn=tflash.make_flash_attn_fn(),
+            generator=torch.Generator(device=device).manual_seed(0), **TRAIN)
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        tokens = train_tokens(torch, 6, TRAIN_BATCH, device)
+        for label, on in (("untraced", False), ("traced", True)):
+            trace.configure(enabled=on, log_path=log if on else None,
+                            rank=0)
+            metrics.configure(enabled=on, every=1 if on else 0, rank=0)
+            model.load_state_dict(init)
+            opt = adamw(TRAIN_LR)
+            step = make_step(lm_loss, opt, wire="mean")
+            state = opt.init(model.parameters())
+            torch.cuda.synchronize()
+            tflash.reset_launch_counts()
+            losses, t0 = [], None
+            for i in range(OBS_STEPS):
+                if i == 1:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                out = step(model, state, tokens)
+                state = out.opt_state
+                losses.append(out.loss.detach().reshape(-1))
+            torch.cuda.synchronize()
+            runs[label] = dict(
+                step_ms=(time.perf_counter() - t0) / (OBS_STEPS - 1) * 1e3,
+                losses=torch.cat(losses),
+                launches_per_step={k: v / OBS_STEPS
+                                   for k, v in tflash.LAUNCHES.items()})
+            del state, out, step
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        context.destroy_process_group()
+        trace.configure(enabled=False)
+    return runs
+
+
+def obs_check_log(export, health, metrics, log) -> dict:
+    """The traced host door's log held to the contract: OBS_STEPS
+    ``host_step`` spans, each with one ``backward``, at least one
+    ``bucket`` (one ``comm:allreduce_sum`` each) and one ``update``; no
+    ``check_log`` issue; every snapshot valid; the Chrome trace parses
+    with pid = the rank; ``HealthMonitor(DEFAULT_RULES)`` ends ok."""
+    recs, bad = export.read_log(log)
+    issues = export.check_log(recs, bad)
+    if issues:
+        fail(f"obs: check_log issues {issues[:5]}")
+    spans = [r for r in recs if r.get("event") == "trace_span"]
+    kids = {}
+    for sp in spans:
+        kids.setdefault(sp["parent_id"], []).append(sp)
+    steps = [sp for sp in spans if sp["name"] == "host_step"]
+    if len(steps) != OBS_STEPS:
+        fail(f"obs: {len(steps)} host_step spans, expected {OBS_STEPS}")
+    n_buckets = []
+    for st in steps:
+        names = [c["name"] for c in kids.get(st["span_id"], [])]
+        buckets = [c for c in kids.get(st["span_id"], [])
+                   if c["name"] == "bucket"]
+        if (names.count("backward") != 1 or names.count("update") != 1
+                or not buckets):
+            fail(f"obs: host_step children {names}")
+        for b in buckets:
+            comm = [c["name"] for c in kids.get(b["span_id"], [])]
+            if comm != ["comm:allreduce_sum"]:
+                fail(f"obs: bucket children {comm}")
+        n_buckets.append(len(buckets))
+    snaps = [r for r in recs if r.get("event") == "metrics_snapshot"]
+    bad_snaps = [metrics.validate_snapshot(r) for r in snaps]
+    if len(snaps) != OBS_STEPS or any(bad_snaps):
+        fail(f"obs: {len(snaps)} snapshots, issues {bad_snaps}")
+    ct = json.loads(json.dumps(export.chrome_trace(recs)))
+    pids = {e["pid"] for e in ct["traceEvents"] if e["ph"] == "X"}
+    if pids != {0}:
+        fail(f"obs: chrome trace pids {pids}")
+    mon = health.scan_records(recs)
+    if mon.state != health.OK:
+        fail(f"obs: health {mon.verdict()}")
+    by_name = {}
+    for sp in spans:
+        by_name.setdefault(sp["name"], []).append(sp["dur_ns"] / 1e6)
+    return dict(spans=len(spans), snapshots=len(snaps),
+                buckets_per_step=n_buckets, health=mon.state,
+                span_ms_median={k: float(np.median(v))
+                                for k, v in by_name.items()},
+                last_snapshot={k: v for k, v in snaps[-1]["metrics"].items()
+                               if k.startswith(("train.", "comm.", "obs."))})
+
+
+def obs_serve(torch, port, tflash, device, trace, metrics, export, log):
+    """8 greedy requests (serve_paged's traffic) through the monolithic
+    engine with tracing off, then on: the streams, and each traced
+    request's span tree against its TTFT."""
+    from distributed_pytorch_tpu_torch.serve import (EngineConfig,
+                                                     SamplingParams)
+    model = port.TransformerLM(
+        dtype=torch.bfloat16, device=device,
+        attn_fn=tflash.make_flash_attn_fn(),
+        generator=torch.Generator(device=device).manual_seed(0), **FLAGSHIP)
+    prompts, _ = paged_traffic()
+    sps = [SamplingParams(max_new_tokens=MAX_NEW)] * len(prompts)
+    cfg = EngineConfig(n_slots=4, max_len=2048)
+    trace.reset()
+    trace.configure(enabled=False)
+    plain = run_engine(torch, tflash, model, cfg, prompts, sps)
+    trace.configure(enabled=True, log_path=log, rank=0)
+    traced = run_engine(torch, tflash, model, cfg, prompts, sps)
+    trace.configure(enabled=False)
+    same = all(np.array_equal(a, b)
+               for a, b in zip(plain["outs"], traced["outs"]))
+    recs, bad = export.read_log(log)
+    if bad:
+        fail(f"obs serve: malformed lines {bad[:3]}")
+    errs, roots = [], []
+    for h in traced["handles"]:
+        req = h._request
+        spans = [r for r in recs if r.get("event") == "trace_span"
+                 and r.get("trace_id") == req.trace_id]
+        root = [sp for sp in spans if sp["name"] == "serve.request"]
+        legs = {sp["name"]: sp["dur_ns"] for sp in spans
+                if sp["parent_id"] is not None}
+        roots.append(len(root))
+        if len(root) != 1 or any(sp["parent_id"] != root[0]["span_id"]
+                                 for sp in spans if sp is not root[0]):
+            fail(f"obs serve: request {req.request_id} span tree "
+                 f"{[(sp['name'], sp['parent_id']) for sp in spans]}")
+        ttft_s = req.first_token_t - req.submit_t
+        errs.append(abs((legs["serve.queue"] + legs["serve.prefill"]) / 1e9
+                        - ttft_s))
+    del model
+    torch.cuda.empty_cache()
+    return dict(tokens_equal=same, roots_per_request=roots,
+                telescope_err_s_max=max(errs),
+                launches_traced=traced["launches"],
+                launches_untraced=plain["launches"],
+                slo_untraced=slo(torch, plain), slo_traced=slo(torch, traced))
+
+
+def obs_ckpt(torch, port, device, trace, metrics, export, log, tmp):
+    """One FLAGSHIP ``CheckpointManager`` save with tracing on: its spans
+    and the ``ckpt.saves`` counter."""
+    from distributed_pytorch_tpu_torch.ckpt import CheckpointManager
+    model = port.TransformerLM(
+        dtype=torch.bfloat16, device=device,
+        generator=torch.Generator(device=device).manual_seed(0), **TRAIN)
+    trace.reset()
+    metrics.reset()
+    trace.configure(enabled=True, log_path=log, rank=0)
+    metrics.configure(enabled=True, rank=0)
+    t0 = time.perf_counter()
+    CheckpointManager(os.path.join(tmp, "ck")).save(1, model, force=True)
+    wall = time.perf_counter() - t0
+    trace.configure(enabled=False)
+    recs, _ = export.read_log(log)
+    names = sorted({r["name"] for r in recs
+                    if r.get("event") == "trace_span"})
+    snap = metrics.snapshot()
+    del model
+    return dict(spans=names, saves=snap.get("ckpt.saves"), save_s=wall,
+                snapshot_ms=snap.get("ckpt.snapshot_ms"),
+                io_ms=snap.get("ckpt.io_ms"))
+
+
+def obs_adamw_8bit(torch, port, tflash, device):
+    """FLAGSHIP under ZeRO-3 (FSDP2 DTensor parameters on a one-rank NCCL
+    mesh) with ``adamw_8bit``, OBS_8BIT_STEPS steps, beside the replicated
+    ``adamw_8bit`` step from the same weights: losses, each step's host
+    ms (ending in a synchronize; the first builds the layout), the int8
+    codes and scales after the last step, state bytes beside adamw's."""
+    from distributed_pytorch_tpu_torch import optim
+    from distributed_pytorch_tpu_torch.parallel import fsdp, make_train_step
+    from distributed_pytorch_tpu_torch.runtime import context
+
+    def build():
+        return port.TransformerLM(
+            dtype=torch.bfloat16, device=device,
+            attn_fn=tflash.make_flash_attn_fn(),
+            generator=torch.Generator(device=device).manual_seed(0), **TRAIN)
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    tokens = train_tokens(torch, 6, TRAIN_BATCH, device)
+    runs = {}
+    mesh = one_rank_group(torch)
+    try:
+        for label in ("replicated", "zero3"):
+            model = build()
+            opt = optim.adamw_8bit(TRAIN_LR)
+            step = (make_train_step(lm_loss, opt) if label == "replicated"
+                    else fsdp.make_fsdp_train_step(
+                        lm_loss, opt, mesh, fsdp.fsdp_param_specs(model, 1)))
+            state = opt.init(model.parameters())
+            torch.cuda.synchronize()
+            tflash.reset_launch_counts()
+            losses, step_ms = [], []
+            for _ in range(OBS_8BIT_STEPS):
+                t0 = time.perf_counter()
+                out = step(model, state, tokens)
+                state = out.opt_state
+                losses.append(out.loss.detach().reshape(-1))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            runs[label] = dict(
+                step_ms=step_ms,
+                losses=torch.cat(losses).float(),
+                launches_per_step={k: v / OBS_8BIT_STEPS
+                                   for k, v in tflash.LAUNCHES.items()},
+                codes=[[whole(t) for t in node]
+                       for f in ("mu", "nu") for node in getattr(state, f)],
+                placements=sorted({str(tuple(n.q.placements))
+                                   for n in state.mu
+                                   if hasattr(n.q, "placements")}),
+                state_bytes=state_bytes(torch, [
+                    [whole(t) for t in node]
+                    for f in ("mu", "nu") for node in getattr(state, f)]))
+            n_params = sum(p.numel() for p in model.parameters())
+            del model, state, out, step
+            torch.cuda.empty_cache()
+    finally:
+        context.destroy_process_group()
+    rep, z3 = runs["replicated"], runs["zero3"]
+    codes_equal = all(torch.equal(a, b) for na, nb in zip(
+        rep["codes"], z3["codes"]) for a, b in zip(na, nb))
+    return dict(
+        losses_equal=bool(torch.equal(rep["losses"], z3["losses"])),
+        codes_equal=codes_equal, n_params=n_params,
+        adamw_state_bytes=2 * 4 * n_params,
+        **{f"{k}_{label}": r[k] for label, r in runs.items()
+           for k in ("step_ms", "launches_per_step",
+                     "state_bytes", "placements")},
+        losses_replicated=rep["losses"].tolist(),
+        losses_zero3=z3["losses"].tolist())
+
+
+def phase_obs(torch, port, tflash, device):
+    """The observability layer on the card at FLAGSHIP width: (a) the
+    host door untraced and traced (losses bit for bit, the span tree,
+    the log clean, health ok, step ms and ns per span off and on); (b)
+    the serve engine traced (streams equal, each request's span tree
+    telescoping to its TTFT); (c) a traced checkpoint save; (d)
+    ``adamw_8bit`` under ZeRO-3 against the replicated step. Returns the
+    flash launches per step of each training case."""
+    from distributed_pytorch_tpu_torch.obs import (export, health, metrics,
+                                                   trace)
+    from distributed_pytorch_tpu_torch.perfbench import stats
+    from distributed_pytorch_tpu_torch.runtime import env
+    tmp = tempfile.mkdtemp(prefix="obs_")
+    old_log = env.get("DPX_METRICS_LOG")
+    try:
+        t0 = time.perf_counter()
+        overhead = obs_overhead(trace, metrics, stats, tmp)
+        host_log = os.path.join(tmp, "host.jsonl")
+        host = obs_host_door(torch, port, tflash, device, trace, metrics,
+                             host_log)
+        host_check = obs_check_log(export, health, metrics, host_log)
+        serve = obs_serve(torch, port, tflash, device, trace, metrics,
+                          export, os.path.join(tmp, "serve.jsonl"))
+        ckpt = obs_ckpt(torch, port, device, trace, metrics, export,
+                        os.path.join(tmp, "ckpt.jsonl"), tmp)
+        q8 = obs_adamw_8bit(torch, port, tflash, device)
+        wall = time.perf_counter() - t0
+    finally:
+        if old_log is None:
+            # dpxlint: disable=DPX002 the registry sets, never unsets: the phase's own variable goes back to unset
+            os.environ.pop("DPX_METRICS_LOG", None)
+        else:
+            env.set("DPX_METRICS_LOG", old_log)
+        trace.reset()
+        metrics.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    untr, tr = host["untraced"], host["traced"]
+    emit(phase="obs", card=torch.cuda.get_device_name(0),
+         config=dict(TRAIN, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     dtype="bfloat16", optimizer=f"adamw({TRAIN_LR})",
+                     wire="mean", backend="host", world=1),
+         wall_s=wall, overhead=overhead,
+         host_door=dict(step_ms_untraced=untr["step_ms"],
+                        step_ms_traced=tr["step_ms"],
+                        losses_untraced=untr["losses"].float().tolist(),
+                        losses_traced=tr["losses"].float().tolist(),
+                        launches_per_step_untraced=untr["launches_per_step"],
+                        launches_per_step_traced=tr["launches_per_step"],
+                        **host_check),
+         serve=serve, ckpt=ckpt, adamw_8bit=q8)
+    want = {k: TRAIN["n_layers"] for k in tflash.LAUNCHES}
+    if not torch.equal(untr["losses"], tr["losses"]):
+        fail(f"obs: traced losses {tr['losses'].tolist()} differ from "
+             f"untraced {untr['losses'].tolist()}")
+    for label, per_step in (("host_door_untraced", untr["launches_per_step"]),
+                            ("host_door_traced", tr["launches_per_step"]),
+                            ("adamw_8bit_replicated",
+                             q8["launches_per_step_replicated"]),
+                            ("adamw_8bit_zero3",
+                             q8["launches_per_step_zero3"])):
+        if per_step != want:
+            fail(f"obs {label}: launches per step {per_step}")
+    if not serve["tokens_equal"]:
+        fail("obs serve: traced streams differ from untraced")
+    if serve["telescope_err_s_max"] > TELESCOPE_TOL_S:
+        fail(f"obs serve: children vs TTFT off by "
+             f"{serve['telescope_err_s_max']} s")
+    if serve["launches_traced"] <= 0:
+        fail("obs serve: no flash launch in the traced run")
+    if ckpt["spans"] != ["ckpt.commit", "ckpt.io", "ckpt.save"] \
+            or ckpt["saves"] != 1:
+        fail(f"obs ckpt: spans {ckpt['spans']}, saves {ckpt['saves']}")
+    if not (q8["losses_equal"] and q8["codes_equal"]):
+        fail(f"obs adamw_8bit: ZeRO-3 losses {q8['losses_zero3']} vs "
+             f"replicated {q8['losses_replicated']}, codes equal "
+             f"{q8['codes_equal']}")
+    return {"host_door_untraced": untr["launches_per_step"],
+            "host_door_traced": tr["launches_per_step"],
+            "serve_traced": {"flash_attention_fwd": serve["launches_traced"]},
+            "adamw_8bit_replicated": q8["launches_per_step_replicated"],
+            "adamw_8bit_zero3": q8["launches_per_step_zero3"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4040,6 +4447,9 @@ def main() -> int:
     ring_launches = phase_ring_hops(torch, tflash, device)
     moe_launches = phase_moe_lm(torch, port, tflash, device)
     pipe_launches = phase_pipeline(torch, port, tflash, device)
+    # the observability layer: traced host door, serving and checkpoint,
+    # and adamw_8bit on sharded parameters
+    obs_launches = phase_obs(torch, port, tflash, device)
 
     # bf16 at the serving prefill shape (ms, library_ms) and at the
     # FLAGSHIP train shape (train_*), with the design each one ran
@@ -4093,6 +4503,8 @@ def main() -> int:
         row["moe_lm_launches_per_step"] = moe_launches[name]
         row["pipeline_launches_per_step"] = {
             s: per_step[name] for s, per_step in pipe_launches.items()}
+        row["obs_launches"] = {case: counts.get(name, 0)
+                               for case, counts in obs_launches.items()}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=launches[name], **row)

@@ -24,9 +24,14 @@ every rank is a writer and writes only the shards it owns under
 on a mesh of ``axis_sizes``; its snapshot copies this rank's owned
 pieces alone from the device (a ZeRO-3 parameter's local shard, never
 the whole parameter). ``save()``, ``wait()`` and ``restore_latest()``
-are collective calls that every rank makes in the same order. The trace
-spans and fault marks of the JAX manager wait for the observability
-slice (Queue A item 6).
+are collective calls that every rank makes in the same order.
+
+Each save is a ``ckpt.save`` dpxtrace span (the control thread's
+snapshot), a ``ckpt.io`` span (the write, on the ckpt-io thread when
+async) and a ``ckpt.commit`` span, with ``ckpt.<phase>`` instant events
+at each phase; the commit counts ``ckpt.saves`` and observes
+``ckpt.snapshot_ms`` / ``ckpt.io_ms`` in the dpxmon registry. The
+``DPX_FAULT`` marks of the JAX manager come with the fault layer.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import torch
 
+from ..obs import metrics as _dpxmon
+from ..obs import trace as _dpxtrace
 from . import writer as _writer
 from .errors import CkptError
 from .reader import ReadStats, Target  # noqa: F401  (re-exported)
@@ -64,6 +71,10 @@ def clear_trace() -> None:
 def _mark(phase: str) -> None:
     with _trace_lock:
         _trace.append((phase, threading.current_thread().name))
+    # the same phase on the dpxtrace timeline (obs/trace.py): an instant
+    # marker at the phase's entry; the save / io / commit spans around
+    # it carry the durations (no-ops unless DPX_TRACE)
+    _dpxtrace.event(f"ckpt.{phase}")
 
 
 class _Pending:
@@ -150,35 +161,43 @@ class CheckpointManager:
         json.dumps(extra or {})  # reject unserializable extras up front
         rank, world = self._topo()
         t0 = time.perf_counter()
-        _mark("d2h")
-        job, plan = None, None
-        if self.sharded:
-            plan = self._plan(params, opt_state, world)
-        elif rank == 0:
-            from ..utils.checkpoint import _as_tree
-            p_tree, o_tree = _as_tree(params, opt_state)
+        # the control thread's half of the save on the trace timeline:
+        # the host snapshot and the staging (a sync save runs the IO and
+        # the commit inside it too); the IO span opens on the ckpt-io
+        # thread in _run_io, the commit span in _finish_pending
+        with _dpxtrace.span("ckpt.save", step=step, rank=rank,
+                            sharded=self.sharded,
+                            async_save=self.async_save):
+            _mark("d2h")
+            job, plan = None, None
+            if self.sharded:
+                plan = self._plan(params, opt_state, world)
+            elif rank == 0:
+                from ..utils.checkpoint import _as_tree
+                p_tree, o_tree = _as_tree(params, opt_state)
 
-            def job():
-                return self._io_full(tmp, step, p_tree, o_tree, extra)
-        tmp = self._prepare_tmp(step, rank)
-        pend = _Pending(step, tmp, plan, extra)
-        if self.sharded:
-            pend.io_stats.update(_writer.snapshot_owned(plan, rank, world))
+                def job():
+                    return self._io_full(tmp, step, p_tree, o_tree, extra)
+            tmp = self._prepare_tmp(step, rank)
+            pend = _Pending(step, tmp, plan, extra)
+            if self.sharded:
+                pend.io_stats.update(_writer.snapshot_owned(plan, rank,
+                                                            world))
 
-            def job():
-                return self._io_sharded(tmp, rank, plan)
-        pend.io_stats["snapshot_s"] = time.perf_counter() - t0
-        self._pending = pend
-        if job is not None:
-            if self.async_save:
-                self._thread = threading.Thread(
-                    target=self._run_io, args=(job, pend),
-                    name="ckpt-io", daemon=True)
-                self._thread.start()
-            else:
-                self._run_io(job, pend)
-        if not self.async_save:
-            self._finish_pending()
+                def job():
+                    return self._io_sharded(tmp, rank, plan)
+            pend.io_stats["snapshot_s"] = time.perf_counter() - t0
+            self._pending = pend
+            if job is not None:
+                if self.async_save:
+                    self._thread = threading.Thread(
+                        target=self._run_io, args=(job, pend),
+                        name="ckpt-io", daemon=True)
+                    self._thread.start()
+                else:
+                    self._run_io(job, pend)
+            if not self.async_save:
+                self._finish_pending()
         return True
 
     def _plan(self, params, opt_state, world):
@@ -218,11 +237,14 @@ class CheckpointManager:
         return tmp
 
     def _run_io(self, job, pend: _Pending) -> None:
-        _mark("io")
-        try:
-            pend.io_stats.update(job() or {})
-        except BaseException as e:  # noqa: BLE001 — raised on the control thread
-            self._error = e
+        # a span of its own (on the ckpt-io thread in async mode: its tid
+        # on the timeline shows the write left the control thread)
+        with _dpxtrace.span("ckpt.io", step=pend.step):
+            _mark("io")
+            try:
+                pend.io_stats.update(job() or {})
+            except BaseException as e:  # noqa: BLE001 — raised on the control thread
+                self._error = e
 
     def _io_sharded(self, tmp: str, rank: int, plan) -> Dict[str, Any]:
         stats = _writer.write_shards(tmp, rank, plan)
@@ -253,27 +275,38 @@ class CheckpointManager:
             return
         pend, self._pending = self._pending, None
         rank, world = self._topo()
-        self._barrier()  # every writer's files are durable
-        if rank == 0:
-            from ..utils import checkpoint as _ck
-            from ..utils.logging import append_event
-            _mark("commit")
-            if self.sharded:
-                _writer.commit(self.ckpt_dir, pend.step, pend.tmp,
-                               pend.plan, pend.extra, self._resolved_axes(),
-                               world, keep=self.keep)
-            else:
-                _ck._commit_full(self.ckpt_dir, pend.step, pend.tmp,
-                                 keep=self.keep)
-            append_event(
-                "ckpt_save", step=pend.step, rank=rank, world=world,
-                sharded=self.sharded, async_save=self.async_save,
-                bytes=pend.io_stats.get("bytes"),
-                shards=pend.io_stats.get("shards"),
-                io_s=round(pend.io_stats.get("duration_s", 0.0), 6),
-                snapshot_s=round(pend.io_stats.get("snapshot_s", 0.0), 6))
-        self.saves.append(dict(pend.io_stats, step=pend.step))
-        self._barrier()  # the commit is visible on every rank
+        with _dpxtrace.span("ckpt.commit", step=pend.step, rank=rank):
+            self._barrier()  # every writer's files are durable
+            # dpxmon (obs/metrics.py): the phase durations land in every
+            # writer's own rank-attributed snapshot stream
+            _dpxmon.inc("ckpt.saves")
+            _dpxmon.observe("ckpt.snapshot_ms",
+                            pend.io_stats.get("snapshot_s", 0.0) * 1e3)
+            if "duration_s" in pend.io_stats:
+                _dpxmon.observe("ckpt.io_ms",
+                                pend.io_stats["duration_s"] * 1e3)
+            if rank == 0:
+                from ..utils import checkpoint as _ck
+                from ..utils.logging import append_event
+                _mark("commit")
+                if self.sharded:
+                    _writer.commit(self.ckpt_dir, pend.step, pend.tmp,
+                                   pend.plan, pend.extra,
+                                   self._resolved_axes(), world,
+                                   keep=self.keep)
+                else:
+                    _ck._commit_full(self.ckpt_dir, pend.step, pend.tmp,
+                                     keep=self.keep)
+                append_event(
+                    "ckpt_save", step=pend.step, rank=rank, world=world,
+                    sharded=self.sharded, async_save=self.async_save,
+                    bytes=pend.io_stats.get("bytes"),
+                    shards=pend.io_stats.get("shards"),
+                    io_s=round(pend.io_stats.get("duration_s", 0.0), 6),
+                    snapshot_s=round(pend.io_stats.get("snapshot_s", 0.0),
+                                     6))
+            self.saves.append(dict(pend.io_stats, step=pend.step))
+            self._barrier()  # the commit is visible on every rank
 
     def wait(self) -> None:
         """Join in-flight IO and commit the pending step (collective)."""

@@ -8,9 +8,10 @@ rank-dependent branch, swallowed an exception past a barrier, had a
 fault injected — raises a typed, rank-attributed
 :class:`CollectiveMismatch` within ONE fingerprint exchange, instead of
 leaving its peers to hang for a full ``DPX_COMM_TIMEOUT_MS`` deadline
-with no attribution. (The JAX package also dumps its
-flight recorder and schedule digest on the way out; the port's fault
-and trace layers are not ported yet.)
+with no attribution. The flight recorder (obs/trace.py) dumps on the
+way out, as on every other typed comm failure. (The JAX package also
+dumps its rolling schedule digest, ``analysis/schedule.py``, which the
+port does not have yet.)
 
 Wire format (``_RECORD`` struct, little-endian, 88 bytes — fixed size
 so MISMATCHED ranks still complete the exchange):
@@ -185,4 +186,7 @@ class CollectiveSanitizer:
                 msg, op=op, rank=comm.rank, peer=peer, seq=mine["seq"],
                 peer_op=theirs["op"], call_site=site,
                 peer_call_site=theirs["site"])
+        # the flight recorder rides out with the typed error, as on every
+        # native failure path (HostComm._check)
+        comm._dpxtrace.on_typed_failure(exc)
         raise exc

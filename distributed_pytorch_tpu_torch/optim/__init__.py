@@ -22,7 +22,9 @@ DTensor on the same mesh with the same placements, so the update runs
 on the local shard alone, and a statistic over the whole parameter
 (adafactor's factored means and RMS, the global norm of
 ``with_clipping``) is the global one, as the JAX package's global-view
-math gives. ``adamw_8bit`` refuses a DTensor parameter.
+math gives. ``adamw_8bit``'s int8 codes follow the parameter's
+placement and its per-block scales are replicated, each block's the
+one of the whole flattened parameter.
 """
 
 from __future__ import annotations
@@ -323,6 +325,152 @@ def _q8_dequant_log(qm: Q8LogMoment, shape, block: int = _Q8_BLOCK):
     return (y.reshape(-1)[:n] - _Q8_VFLOOR).clamp(min=0.0).reshape(shape)
 
 
+class _ShardBlocks:
+    """Where the elements of a DTensor's local shard fall among the
+    ``block``-element blocks of the whole flattened tensor.
+
+    A shard whose elements are one contiguous run of the whole tensor's
+    flat order (every ``Shard(0)`` layout, any layout over one rank) is
+    kept as ``(start, n)``: its blocks are a contiguous range, reduced and
+    expanded by a reshape, as the replicated quantizer does. Any other
+    layout (a ``Shard(1)`` column shard, FSDP2's ``_StridedShard`` over a
+    tensor-parallel dimension) keeps each local element's block id, from
+    the shard's offset in every dimension or, for a strided layout, from
+    the whole index tensor laid out as ``x``."""
+
+    def __init__(self, x: DTensor, block: int):
+        from torch.distributed.tensor import Shard
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+        self.x, self.block = x, block
+        self.n_blocks = -(-x.numel() // block)
+        local = x.to_local()
+        self.span = self.ids = None
+        mesh, pls = x.device_mesh, tuple(x.placements)
+        if not all(type(pl) in (Shard, Replicate) for pl in pls):
+            whole = torch.arange(x.numel(), device=local.device).view(x.shape)
+            self.ids = DTensor.from_local(
+                whole, mesh, [Replicate()] * mesh.ndim,
+                run_check=False).redistribute(mesh, pls).to_local() \
+                .reshape(-1) // block
+            return
+        shape, offset = compute_local_shape_and_global_offset(
+            x.shape, mesh, pls)
+        strides = torch.empty(x.shape, device="meta").stride()
+        part = [d for d in range(x.dim()) if shape[d] != x.shape[d]]
+        if not part or all(shape[d] == 1 for d in range(part[-1])):
+            self.span = (sum(o * st for o, st in zip(offset, strides)),
+                         local.numel())
+            return
+        idx = torch.zeros([1] * x.dim(), dtype=torch.int64,
+                          device=local.device)
+        for d in range(x.dim()):
+            view = [1] * x.dim()
+            view[d] = -1
+            idx = idx + ((torch.arange(shape[d], device=local.device)
+                          + offset[d]) * strides[d]).view(view)
+        self.ids = idx.expand(shape).reshape(-1) // block
+
+    def _padded(self, vals: torch.Tensor) -> torch.Tensor:
+        """Rows of a contiguous shard's values as (rows, blocks, block),
+        each edge padded with the row's own edge value (a value of that
+        block: no block's max moves)."""
+        start, n = self.span
+        front = start % self.block
+        back = (-(front + n)) % self.block
+        vals = torch.cat([vals[:, :1].expand(-1, front), vals,
+                          vals[:, -1:].expand(-1, back)], dim=1)
+        return vals.reshape(vals.shape[0], -1, self.block)
+
+    def block_max(self, vals: torch.Tensor, init: float) -> torch.Tensor:
+        """Per block of the whole tensor, the max of each row of ``vals``
+        (rows of local values) over every shard: this shard's, then an
+        all-reduce MAX over each mesh dimension that shards ``x``. Exact,
+        so the result is the whole tensor's."""
+        from ..comm import primitives as prim
+        out = torch.full((vals.shape[0], self.n_blocks), init,
+                         dtype=vals.dtype, device=vals.device)
+        if self.span is not None:
+            start, n = self.span
+            if n:
+                b0 = start // self.block
+                m = self._padded(vals).amax(dim=2)
+                out[:, b0:b0 + m.shape[1]] = m
+        else:
+            out.scatter_reduce_(1, self.ids.expand(vals.shape[0], -1), vals,
+                                "amax", include_self=True)
+        mesh = self.x.device_mesh
+        for mdim, pl in enumerate(self.x.placements):
+            # every sharding placement (a _StridedShard is no Shard)
+            if not pl.is_replicate() and mesh.size(mdim) > 1:
+                out = prim.pmax(out, group=mesh.get_group(mdim))
+        return out
+
+    def take(self, per_block: torch.Tensor) -> torch.Tensor:
+        """A per-block vector's value at each local element (flat)."""
+        if self.ids is not None:
+            return per_block[self.ids]
+        start, n = self.span
+        b0 = start // self.block
+        b1 = (start + n - 1) // self.block + 1 if n else b0
+        front = start % self.block
+        return per_block[b0:b1].repeat_interleave(self.block)[front:front + n]
+
+
+def _local_like(t: torch.Tensor, x: DTensor) -> DTensor:
+    """A local shard of ``x``'s shape as the DTensor laid out as ``x``."""
+    return DTensor.from_local(t.reshape(x.to_local().shape), x.device_mesh,
+                              x.placements, run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def _replicated(t: torch.Tensor, x: DTensor) -> DTensor:
+    mesh = x.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _q8_quant_sharded(x: DTensor, blocks: _ShardBlocks) -> Q8Moment:
+    """:func:`_q8_quant` of a float32 DTensor from its local shard: the
+    codes laid out as ``x``, the block scales replicated, both equal to
+    those of the whole tensor bit for bit (a zero pad changes no block's
+    amax, so none is needed)."""
+    flat = x.to_local().reshape(-1)
+    amax = blocks.block_max(flat.abs()[None], 0.0)[0]
+    scale = torch.where(amax == 0.0, torch.ones_like(amax), amax / 127.0)
+    q = torch.round(flat / blocks.take(scale)).to(torch.int8)
+    return Q8Moment(q=_local_like(q, x), scale=_replicated(scale, x))
+
+
+def _q8_quant_log_sharded(v: DTensor, blocks: _ShardBlocks) -> Q8LogMoment:
+    """:func:`_q8_quant_log` of a float32 DTensor from its local shard;
+    the block min travels as the max of its negation (the last block's
+    edge pad repeats a value of the block, so it changes neither)."""
+    logv = torch.log(v.to_local().reshape(-1) + _Q8_VFLOOR)
+    ext = blocks.block_max(torch.stack([logv, -logv]), float("-inf"))
+    hi, lo = ext[0], -ext[1]
+    scale = torch.where(hi > lo, (hi - lo) / 254.0, torch.ones_like(hi))
+    mid = (hi + lo) / 2.0
+    q = torch.round((logv - blocks.take(mid))
+                    / blocks.take(scale)).to(torch.int8)
+    return Q8LogMoment(q=_local_like(q, v), scale=_replicated(scale, v),
+                       mid=_replicated(mid, v))
+
+
+def _q8_dequant_sharded(qm: Q8Moment, blocks: _ShardBlocks) -> torch.Tensor:
+    """The local shard of :func:`_q8_dequant` (flat)."""
+    return (qm.q.to_local().reshape(-1).to(torch.float32)
+            * blocks.take(qm.scale.to_local()))
+
+
+def _q8_dequant_log_sharded(qm: Q8LogMoment,
+                            blocks: _ShardBlocks) -> torch.Tensor:
+    y = torch.exp(qm.q.to_local().reshape(-1).to(torch.float32)
+                  * blocks.take(qm.scale.to_local())
+                  + blocks.take(qm.mid.to_local()))
+    return (y - _Q8_VFLOOR).clamp(min=0.0)
+
+
 def adamw_8bit(lr: float, b1: float = 0.9, b2: float = 0.999,
                eps: float = 1e-8, weight_decay: float = 0.01) -> Optimizer:
     """AdamW whose moments are stored as blockwise int8 codes (256
@@ -332,22 +480,25 @@ def adamw_8bit(lr: float, b1: float = 0.9, b2: float = 0.999,
     float32 AdamW arithmetic and requantizes, so the trajectory tracks
     :func:`adamw` closely but not exactly.
 
-    A DTensor (sharded) parameter raises ``NotImplementedError``: the
-    blocks run over the whole flattened parameter, and a shard's blocks
-    would be others."""
+    On a DTensor (sharded) parameter the codes are a DTensor laid out as
+    the parameter and the scales (and the log moment's midpoints) a
+    replicated one, as the JAX package's ``opt_state_specs`` places
+    them; the blocks stay those of the whole flattened parameter. Each
+    rank quantizes its own elements, with each block's amax (min and
+    max) reduced over the shards, so codes, scales and the update equal
+    the replicated step's bit for bit on the same gradients."""
 
     def init(params):
         mu, nu = [], []
         for p in params:
+            z = _zeros_f32(p)
             if isinstance(p, DTensor):
-                raise NotImplementedError(
-                    "adamw_8bit on a sharded (DTensor) parameter is not "
-                    "ported yet: its 256-element blocks run over the whole "
-                    "flattened parameter, and a shard's blocks would differ "
-                    "(ROADMAP.md Queue A item 5.7)")
-            z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            mu.append(_q8_quant(z))
-            nu.append(_q8_quant_log(z))
+                blocks = _ShardBlocks(p, _Q8_BLOCK)
+                mu.append(_q8_quant_sharded(z, blocks))
+                nu.append(_q8_quant_log_sharded(z, blocks))
+            else:
+                mu.append(_q8_quant(z))
+                nu.append(_q8_quant_log(z))
         return AdamW8bitState(step=0, mu=mu, nu=nu)
 
     @torch.no_grad()
@@ -362,6 +513,21 @@ def adamw_8bit(lr: float, b1: float = 0.9, b2: float = 0.999,
         mu, nu = list(state.mu), list(state.nu)
         for i, (p, g) in enumerate(zip(params, grads)):
             if g is None:
+                continue
+            if isinstance(p, DTensor):
+                blocks = _ShardBlocks(p, _Q8_BLOCK)
+                pl = p.to_local()
+                gf = _placed_like(g, p).to_local().reshape(-1).to(
+                    torch.float32)
+                m = b1 * _q8_dequant_sharded(mu[i], blocks) + (1 - b1) * gf
+                v = (b2 * _q8_dequant_log_sharded(nu[i], blocks)
+                     + (1 - b2) * gf * gf)
+                pf = pl.reshape(-1).to(torch.float32) * (
+                    1.0 - lr * weight_decay)
+                pl.copy_((pf - lr * (m / c1) / (torch.sqrt(v / c2) + eps))
+                         .view(pl.shape))
+                mu[i] = _q8_quant_sharded(_local_like(m, p), blocks)
+                nu[i] = _q8_quant_log_sharded(_local_like(v, p), blocks)
                 continue
             gf = g.to(torch.float32)
             m = b1 * _q8_dequant(mu[i], p.shape) + (1 - b1) * gf

@@ -29,6 +29,7 @@ from typing import Callable
 
 import torch
 
+from ...obs import metrics as _dpxmon
 from .. import Optimizer
 from .layout import build_layout
 from .optimizer import shard_optimizer
@@ -106,6 +107,8 @@ def make_host_sharded_train_step(fb: Callable, optimizer: Optimizer,
         times["codec_s"] += t2 - t1
         times["ring_s"] += (t3 - t2) + (t6 - t5)
         times["h2d_s"] += (t4 - t3) + (t7 - t6)
+        # dpxmon step hook (obs/metrics.py; one global read when off)
+        _dpxmon.on_train_step("host_step_sharded")
         return step_output(model, new_state, loss, metrics)
 
     step.init_opt_state = init_opt_state

@@ -330,6 +330,8 @@ def _make_host_train_step(fb: Callable, optimizer: Optimizer,
     ``parallel/data_parallel.py:219-465`` ``_make_host_train_step``)."""
     from ..comm import host_backend as _hb
     from ..comm.wire import WidthChooser
+    from ..obs import metrics as _dpxmon
+    from ..obs import trace as _dpxtrace
     from ..ops.quant import ErrorFeedback
     from ..optim.schedules import reduces_across_leaves
 
@@ -397,16 +399,29 @@ def _make_host_train_step(fb: Callable, optimizer: Optimizer,
 
     if not overlap:
         def step(model, opt_state, batch) -> StepOutput:
-            params, grads, loss, metrics = fb(model, batch)
-            live = [g for g in grads if g is not None]
-            if live:
-                flat = to_host(live)
-                if on_bucket_ready is not None:
-                    on_bucket_ready(0, 1, flat.nbytes)
-                flat = reduce_bucket(0, flat, bits_now(), False)
-                observe([flat])
-                to_device(flat, live)
-            opt_state = optimizer.update(grads, opt_state, params)
+            # dpxtrace spans (obs/trace.py; no-ops unless DPX_TRACE):
+            # host_step > backward / bucket (the comm span nests inside)
+            # / update, on the host's clock: on the card `backward` ends
+            # at the device-to-host copy of the gradients, which waits
+            # for them, and `update` times the launches
+            with _dpxtrace.span("host_step", wire=grad_reduce, buckets=1):
+                with _dpxtrace.span("backward"):
+                    params, grads, loss, metrics = fb(model, batch)
+                    live = [g for g in grads if g is not None]
+                    flat = to_host(live) if live else None
+                if live:
+                    bits = bits_now()
+                    if on_bucket_ready is not None:
+                        on_bucket_ready(0, 1, flat.nbytes)
+                    with _dpxtrace.span("bucket", b=0, nbytes=flat.nbytes,
+                                        bits=bits):
+                        flat = reduce_bucket(0, flat, bits, False)
+                    observe([flat])
+                    to_device(flat, live)
+                with _dpxtrace.span("update"):
+                    opt_state = optimizer.update(grads, opt_state, params)
+            # dpxmon step hook (obs/metrics.py; one global read when off)
+            _dpxmon.on_train_step("host_step")
             return step_output(model, opt_state, loss, metrics)
 
         step.width_chooser = chooser
@@ -425,42 +440,54 @@ def _make_host_train_step(fb: Callable, optimizer: Optimizer,
                 for idx in groups_for(ps)]
 
     def step(model, opt_state, batch) -> StepOutput:
-        params, grads, loss, metrics = fb(model, batch)
-        ps = [p for p, g in zip(params, grads) if g is not None]
-        gs = [g for g in grads if g is not None]
-        groups = groups_for(gs)
-        # a list, as init_opt_state builds it: an optimizer state is
-        # itself a tuple, which a length check alone could take for one
-        if not isinstance(opt_state, list) or len(opt_state) != len(groups):
-            raise TypeError(
-                "the overlapped host step keeps one optimizer state per "
-                "bucket: build opt_state with step.init_opt_state(params), "
-                "not optimizer.init")
-        # every bucket reaches the host in one copy before any update is
-        # issued: a later copy would wait for the updates queued before it
-        flat = to_host(gs)
-        bits = bits_now()
-        new_states, pending, reduced, off = [], [], [], 0
-        for b, idx in enumerate(groups):
-            n = sum(gs[i].numel() for i in idx)
-            piece = flat[off:off + n]
-            off += n
-            if on_bucket_ready is not None:
-                on_bucket_ready(b, len(groups), piece.nbytes)
-            hidden = _outstanding(pending)
-            piece = reduce_bucket(b, piece, bits, hidden)
-            reduced.append(piece)
-            g_sub = [gs[i] for i in idx]
-            to_device(piece, g_sub)
-            # issued and not waited for: the card runs it while the next
-            # bucket's ring runs on the host
-            new_states.append(optimizer.update(
-                g_sub, opt_state[b], [ps[i] for i in idx]))
-            if g_sub[0].is_cuda:
-                ev = torch.cuda.Event()
-                ev.record()
-                pending.append(ev)
-        observe(reduced)
+        with _dpxtrace.span("host_step", wire=grad_reduce,
+                            buckets=n_buckets, overlap=True):
+            with _dpxtrace.span("backward"):
+                params, grads, loss, metrics = fb(model, batch)
+                ps = [p for p, g in zip(params, grads) if g is not None]
+                gs = [g for g in grads if g is not None]
+                groups = groups_for(gs)
+                # a list, as init_opt_state builds it: an optimizer state
+                # is itself a tuple, which a length check alone could take
+                # for one
+                if not isinstance(opt_state, list) \
+                        or len(opt_state) != len(groups):
+                    raise TypeError(
+                        "the overlapped host step keeps one optimizer "
+                        "state per bucket: build opt_state with "
+                        "step.init_opt_state(params), not optimizer.init")
+                # every bucket reaches the host in one copy before any
+                # update is issued: a later copy would wait for the
+                # updates queued before it
+                flat = to_host(gs)
+            bits = bits_now()
+            new_states, pending, reduced, off = [], [], [], 0
+            for b, idx in enumerate(groups):
+                n = sum(gs[i].numel() for i in idx)
+                piece = flat[off:off + n]
+                off += n
+                if on_bucket_ready is not None:
+                    on_bucket_ready(b, len(groups), piece.nbytes)
+                hidden = _outstanding(pending)
+                # the bucket span carries the measured overlap verdict;
+                # the comm span nests inside via CommStats.timed
+                with _dpxtrace.span("bucket", b=b, nbytes=piece.nbytes,
+                                    bits=bits, hidden=hidden):
+                    piece = reduce_bucket(b, piece, bits, hidden)
+                reduced.append(piece)
+                g_sub = [gs[i] for i in idx]
+                to_device(piece, g_sub)
+                # issued and not waited for: the card runs it while the
+                # next bucket's ring runs on the host
+                with _dpxtrace.span("update", b=b):
+                    new_states.append(optimizer.update(
+                        g_sub, opt_state[b], [ps[i] for i in idx]))
+                if g_sub[0].is_cuda:
+                    ev = torch.cuda.Event()
+                    ev.record()
+                    pending.append(ev)
+            observe(reduced)
+        _dpxmon.on_train_step("host_step")
         return step_output(model, new_states, loss, metrics)
 
     step.width_chooser = chooser

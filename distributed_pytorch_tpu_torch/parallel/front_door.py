@@ -62,6 +62,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from ..obs import metrics as _dpxmon
 from ..optim import Optimizer
 from ..runtime import context
 from ..runtime import env as _env
@@ -248,7 +249,13 @@ class FrontDoorStep:
         return out
 
     def __call__(self, params, opt_state, batch):
-        return self._call(params, opt_state, batch)
+        out = self._call(params, opt_state, batch)
+        # dpxmon step hook (obs/metrics.py; one global read when off):
+        # the mesh engines' per-call seam. The host door's builders
+        # return their own step functions and hook themselves, so no
+        # call is counted twice
+        _dpxmon.on_train_step("front_door")
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,8 @@ with no divisible dimension) is left out of ``fully_shard``
 ZeRO-1/2 each rank updates its 1/N slice of every sharded parameter in
 place, and the slices are all-gathered back once per step. The
 optimizer runs on DTensors in every rung, its state laid out as the
-parameters' (``optim/__init__.py``); ``adamw_8bit`` refuses them.
+parameters' (``optim/__init__.py``; ``adamw_8bit``'s int8 codes as
+the parameters, its block scales replicated).
 
 Composes with tensor parallelism: ``parallel.tensor.tensor_parallel_lm``
 first, then the step with ``fsdp_param_specs(model, n, base_specs=
@@ -185,7 +186,7 @@ def _layout_state(state, views):
     from torch.distributed.tensor import Replicate
     n = len(views)
 
-    def like(t, v):
+    def like(t, v, replicate=False):
         if not isinstance(v, DTensor):
             return t
         if isinstance(t, DTensor):
@@ -197,7 +198,7 @@ def _layout_state(state, views):
             # before the FSDP one): whole again, then laid out anew
             t = t.full_tensor()
         mesh = v.device_mesh
-        if tuple(t.shape) == tuple(v.shape):
+        if tuple(t.shape) == tuple(v.shape) and not replicate:
             out = torch.zeros_like(v, dtype=t.dtype)
             out.to_local().copy_(_local_chunk(t, mesh, v.placements))
             return out
@@ -206,12 +207,13 @@ def _layout_state(state, views):
                                   run_check=False)
 
     def conv(node):
-        if isinstance(node, (Q8Moment, Q8LogMoment)):
-            raise NotImplementedError(
-                "adamw_8bit on a sharded (DTensor) parameter is not ported "
-                "yet: its 256-element blocks run over the whole flattened "
-                "parameter, and a shard's blocks would differ (ROADMAP.md "
-                "Queue A item 5.7)")
+        if isinstance(node, list) and len(node) == n and n > 0 and all(
+                isinstance(x, (Q8Moment, Q8LogMoment)) for x in node):
+            # adamw_8bit: the codes as the parameter, the block scales
+            # (and midpoints) replicated, as opt_state_specs places them
+            return [type(x)(like(x.q, v), *(like(s, v, replicate=True)
+                                            for s in x[1:]))
+                    for x, v in zip(node, views)]
         if isinstance(node, list) and len(node) == n and n > 0 and all(
                 isinstance(x, torch.Tensor) for x in node):
             return [like(t, v) for t, v in zip(node, views)]

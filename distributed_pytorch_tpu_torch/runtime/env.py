@@ -162,6 +162,25 @@ register("DPX_FLEET_SPILL_QUEUE", "int", 4,
          "request to the least-loaded replica instead of queueing behind "
          "known back-pressure (a `queue_full` / `no_free_pages` "
          "rejection spills regardless).")
+register("DPX_FLEET_MIN_REPLICAS", "int", 1,
+         "Elasticity floor of the fleet autoscaler: sustained-ok "
+         "drains never shrink the fleet below this many live replicas "
+         "(serve/fleet/autoscale.py).")
+register("DPX_FLEET_MAX_REPLICAS", "int", 4,
+         "Elasticity ceiling of the fleet autoscaler: SLO-degraded "
+         "scale-outs never grow the fleet past this many live "
+         "replicas.")
+register("DPX_FLEET_SCALE_RULES", "str", "",
+         "SLO rule spec the fleet autoscaler evaluates (the "
+         "obs/health.py rule grammar, e.g. "
+         "`serve.ttft_ms.p99<=500;fleet.max_queue_depth<=8`); empty = "
+         "serve/fleet/autoscale.py DEFAULT_FLEET_RULES (TTFT p99 "
+         "ceiling + worst per-replica queue depth).")
+register("DPX_FLEET_DRAIN_AFTER_OK", "int", 8,
+         "Consecutive ok autoscaler evaluations required before a "
+         "sustained-ok drain retires a replica: the scale-in half of "
+         "the hysteresis (scale-out reacts on the first degraded "
+         "verdict).")
 
 register("DPX_MP_POLICY", "str", "off",
          "Default mixed-precision policy of `parallel.make_train_step"
@@ -182,9 +201,67 @@ register("DPX_MULTIPROC_ACCEL", "str", "",
          "`cpu` (gloo); set by `launch_multiprocess`. Unset, a group is "
          "made for the card when one is present and raises otherwise.")
 register("DPX_METRICS_LOG", "str", None,
-         "Line-JSON file receiving structured events: the "
-         "`worker_failure` of `launch_multiprocess` (`utils.logging."
-         "append_event`).")
+         "Line-JSON file receiving structured events from every rank "
+         "and supervisor: the `worker_failure` of `launch_multiprocess`, "
+         "checkpoint saves, metrics snapshots and (by default) the "
+         "dpxtrace spans (`utils.logging.append_event`).")
+
+# -- observability (obs/): dpxtrace spans and the dpxmon registry; the
+# JAX package's names, types, defaults and meanings
+register("DPX_TRACE", "bool", False,
+         "Enable dpxtrace span recording (obs/trace.py): comm ops, the "
+         "host train step, the serve request lifecycle and checkpoint "
+         "phases emit trace_span events and feed the per-rank flight "
+         "recorder. Off = one global read and one `if` per span.")
+register("DPX_TRACE_RING", "int", 256,
+         "Flight-recorder capacity in spans: the bounded per-process "
+         "ring whose last-N spans every typed failure path dumps as a "
+         "flight_recorder event (0 disables the ring; drops are "
+         "counted, never silent).")
+register("DPX_TRACE_LOG", "str", None,
+         "Span sink path for trace_span events (default: the "
+         "DPX_METRICS_LOG stream, so spans ride the same multi-writer "
+         "line-JSON channel as failure events; tools/dpxtrace.py "
+         "merges and exports them).")
+register("DPX_MON", "bool", True,
+         "Enable the dpxmon live metrics registry (obs/metrics.py): "
+         "counters/gauges/histograms record in-process and snapshots "
+         "can be emitted. 0 makes every instrument a no-op costing one "
+         "global read. No IO happens either way until a snapshot sink "
+         "is configured (DPX_METRICS_LOG or an explicit path).")
+register("DPX_MON_EVERY", "int", 0,
+         "Auto-emit a rank-attributed metrics_snapshot every N train "
+         "steps from the instrumented step hooks (0 = no automatic "
+         "cadence; explicit obs.metrics.emit_snapshot calls and the "
+         "serve engine's log_every emission are unaffected).")
+register("DPX_MON_RULES", "str", None,
+         "Extra SLO health rules appended to obs/health.py's default "
+         "set, in the rule grammar: e.g. "
+         "`serve.ttft_ms.p99<=500;drift(train.steps_per_sec)@k=3`.")
+
+# -- the trial statistics of perfbench/stats.py
+register("DPX_TORCH_THREADS", "int", 8,
+         "Torch intra-op thread count pinned by "
+         "`perfbench.stats.pin_torch_threads` for stable A/B "
+         "comparisons.")
+register("DPX_BENCH_TRIALS", "int", 5,
+         "Repeated-trial count of the perfbench statistical policy "
+         "(perfbench/stats.py).")
+register("DPX_BENCH_WARMUP", "int", 1,
+         "Leading trials discarded as warmup before median/IQR "
+         "aggregation.")
+register("DPX_BENCH_MAX_SPREAD", "float", 0.15,
+         "Hard spread gate (IQR/median) above which trial stats are "
+         "marked untrusted and ratios built on them are withheld "
+         "(perfbench/stats.py).")
+register("DPX_BENCH_AFFINITY", "int", 8,
+         "Pin benchmark processes to the first N allowed CPUs for "
+         "run-to-run comparability (0 = leave affinity alone; "
+         "perfbench/stats.pin_process).")
+register("DPX_BENCH_BUDGET_S", "float", 120.0,
+         "Wall-clock budget of stats.measure_until's hunt for a "
+         "stationary trial window on a contended host "
+         "(perfbench/stats.py).")
 
 # -- the native host process group (runtime/native.py HostComm), the
 # gradient wire it carries (comm/host_backend.py, parallel/

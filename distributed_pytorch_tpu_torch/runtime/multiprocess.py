@@ -148,4 +148,9 @@ def launch_multiprocess(worker_fn: Callable, nprocs: int, *args,
         from ..utils.logging import append_event
         append_event("worker_failure", rank=e.rank, exitcode=e.exitcode,
                      world=nprocs, op=e.op, kind=e.kind)
+        # flight recorder (obs/trace.py): spans this supervisor traced
+        # ship with the failure; a no-op when its ring is empty (each
+        # rank process ships its own from its typed error path)
+        from ..obs import trace as _dpxtrace
+        _dpxtrace.on_typed_failure(e)
         raise

@@ -210,10 +210,13 @@ class HostComm:
     bytes this rank sends (``comm/wire.py``'s formulas over the world).
     ``hidden=True`` books an op's time as overlapped with device work.
 
-    Not ported yet (each waits for the port's fault and trace layers):
-    the fault-injection hooks, the collective-schedule recorder, the
-    trace spans and the metrics provider of the JAX package's
-    ``HostComm``."""
+    Every op is a ``comm:<op>`` dpxtrace span (through
+    ``CommStats.timed``), the comm stamps its rank on the spans and
+    metrics snapshots of its process, and its ``stats`` are the dpxmon
+    ``comm`` provider. Not ported yet: the fault-injection hooks
+    (``faults.on_comm_op``) and the collective-schedule recorder
+    (``analysis/schedule.py``) of the JAX package's ``HostComm``, which
+    come with the fault layer and the analysis tools."""
 
     #: allreduce op codes (``dpxhost.cpp``'s enum)
     _OPS = {"sum": 0, "max": 1, "min": 2}
@@ -222,9 +225,18 @@ class HostComm:
                  world: int, timeout_ms: int = 30000,
                  op_timeout_ms: Optional[int] = None):
         from ..comm import wire as _wire
+        from ..obs import metrics as _dpxmon
+        from ..obs import trace as _dpxtrace
         from ..utils.profiler import CommStats
         self._wire = _wire
+        self._dpxtrace = _dpxtrace
+        # every span and snapshot this process records from here on is
+        # rank-attributed; the per-op accounting is the pull-model `comm`
+        # provider (polled once per snapshot; a newer comm replaces it)
+        _dpxtrace.set_rank(rank)
         self.stats = CommStats()
+        _dpxmon.set_rank(rank)
+        _dpxmon.register_provider("comm", self.stats.monitor_metrics)
         self._lib = load_library()
         self._h = None
         # the native layer takes a dotted quad only
@@ -283,18 +295,24 @@ class HostComm:
         where = f"(rank {self.rank}, op {what}"
         where += f", peer {peer})" if peer >= 0 else ")"
         if rc == _RC_PEER_CLOSED:
-            raise CommPeerDied(f"peer closed connection mid-collective "
+            exc = CommPeerDied(f"peer closed connection mid-collective "
                                f"{where}", op=what, rank=self.rank,
                                peer=peer)
-        if rc == _RC_TIMEOUT:
-            raise CommTimeout(f"deadline {self.op_timeout_ms}ms exceeded "
+        elif rc == _RC_TIMEOUT:
+            exc = CommTimeout(f"deadline {self.op_timeout_ms}ms exceeded "
                               f"{where}", deadline_ms=self.op_timeout_ms,
                               op=what, rank=self.rank, peer=peer)
-        if rc == _RC_CORRUPT:
-            raise CommCorrupt(f"framed quant payload failed CRC32 {where}",
+        elif rc == _RC_CORRUPT:
+            exc = CommCorrupt(f"framed quant payload failed CRC32 {where}",
                               op=what, rank=self.rank, peer=peer)
-        raise CommError(f"native {what} failed {where} rc={rc}", op=what,
-                        rank=self.rank, peer=peer)
+        else:
+            exc = CommError(f"native {what} failed {where} rc={rc}",
+                            op=what, rank=self.rank, peer=peer)
+        # flight recorder: the last spans of this rank's timeline ride
+        # out beside the typed error (obs/trace.py); best effort, it
+        # never masks `exc`
+        self._dpxtrace.on_typed_failure(exc)
+        raise exc
 
     def _per_rank(self, total: int) -> int:
         return total // max(self.world, 1)

@@ -24,9 +24,12 @@ typed ``PrefillEngineDied`` blaming ``engine="prefill"``, and refuses
 later submissions with ``reason="prefill_dead"``; every decode-resident
 stream goes on producing ``generate()``'s tokens.
 
-The JAX engine's dpxmon gauges are one ``metrics_snapshot`` event in the
-metrics log every ``log_every`` decode iterations. Not ported yet: the
-dpxtrace spans and ``emit_request_trace`` (ROADMAP.md Queue A item 6).
+Observability: every ``log_every`` decode iterations the split's gauges
+go through the dpxmon registry into one rank-attributed
+``metrics_snapshot`` event of the metrics log; each completion observes
+the TTFT / TPOT histograms the health rules read, and at retirement
+``emit_request_trace`` writes the request's span tree (queue, prefill,
+handoff, decode, stream) under the trace id it got at submit.
 """
 
 from __future__ import annotations
@@ -40,17 +43,19 @@ import numpy as np
 import torch
 
 from ...models.generate import _check_attn_compatible, _model_window
+from ...obs import metrics as dpxmon
+from ...obs import trace as dpxtrace
 from ...runtime import env as _env
 from ...runtime.device import default_generator
 from ...utils.logging import MetricsLogger
 from ..engine import _default_buckets
-from ..metrics import request_record
+from ..metrics import emit_request_trace, request_record
 from ..scheduler import AdmissionScheduler
 from ..spec import SpecConfig
 from ..types import (FAILED, FINISHED, AdmissionRejected, EngineStopped,
-                     HandoffCorrupt, HandoffTimeout, PrefillEngineDied,
-                     Request, RequestDeadlineExceeded, RequestHandle,
-                     SamplingParams)
+                     HandoffCorrupt, HandoffError, HandoffTimeout,
+                     PagePoolExhausted, PrefillEngineDied, Request,
+                     RequestDeadlineExceeded, RequestHandle, SamplingParams)
 from . import frames
 from .decode import DecodeEngine
 from .prefill import PrefillEngine
@@ -221,7 +226,8 @@ class DisaggEngine:
                       deadline_t=(now + sp.deadline_ms / 1e3
                                   if sp.deadline_ms is not None else None),
                       on_token=on_token, tenant=tenant,
-                      stage="prefill_queue")
+                      stage="prefill_queue",
+                      trace_id=dpxtrace.new_trace_id())
         req.handle = RequestHandle(req)
         with self._lock:
             if self._stop:
@@ -236,6 +242,8 @@ class DisaggEngine:
             if (tenant is not None and self._tenant_max > 0
                     and self._tenant_inflight.get(tenant, 0)
                     >= self._tenant_max):
+                dpxmon.inc("serve.rejected")
+                dpxmon.inc(f"serve.rejected.tenant.{tenant}")
                 raise AdmissionRejected(
                     f"request {rid}: tenant {tenant!r} already has "
                     f"{self._tenant_inflight[tenant]} inflight "
@@ -330,8 +338,18 @@ class DisaggEngine:
             self._completed += 1
         rec = request_record(req, "ok")
         req.handle.metrics = rec
+        # dpxmon SLO instruments: the monolithic engine's histograms, so
+        # the p99-ceiling health rules cover both front doors
+        dpxmon.inc("serve.completed")
+        for name in ("ttft_ms", "tpot_ms"):
+            if rec[name] is not None:
+                dpxmon.observe(f"serve.{name}", rec[name])
+                if req.tenant is not None:
+                    dpxmon.observe(f"serve.{name}.tenant.{req.tenant}",
+                                   rec[name])
         if self.metrics is not None:
             self.metrics.event("serve_request", **rec)
+        emit_request_trace(req, "ok")
         req.handle.future.set_result(np.asarray(req.out_tokens, np.int32))
 
     def fail(self, req: Request, exc: Exception, outcome: str) -> None:
@@ -342,8 +360,15 @@ class DisaggEngine:
             self._failed += 1
         rec = request_record(req, outcome)
         req.handle.metrics = rec
+        dpxmon.inc("serve.failed")
+        dpxmon.inc(f"serve.outcome.{outcome}")
         if self.metrics is not None:
             self.metrics.event("serve_request", **rec)
+        emit_request_trace(req, outcome)
+        if isinstance(exc, (HandoffError, PagePoolExhausted)):
+            # an infrastructure failure ships the split's recent spans
+            # with the typed error (obs/trace.py, best effort)
+            dpxtrace.on_typed_failure(exc)
         req.handle.future.set_exception(exc)
 
     def fail_queued_deadline(self, req: Request) -> None:
@@ -483,30 +508,34 @@ class DisaggEngine:
         }
 
     def periodic_metrics(self, iteration: int) -> None:
-        """Every ``log_every`` decode iterations, the split's gauges as
-        one ``metrics_snapshot`` event (the JAX engine's dpxmon
-        snapshot)."""
+        """Every ``log_every`` decode iterations, the split's queue,
+        occupancy and handoff gauges through the dpxmon registry into
+        one rank-attributed ``metrics_snapshot`` event."""
         if self.metrics is None or iteration % self.config.log_every:
+            return
+        if not dpxmon.enabled():
             return
         d = self.decode.stats()
         ps = d["pages"]
-        m = {"serve.queue_depth": len(self.scheduler),
-             "serve.handoff_in_flight": self.handoff_count(),
-             "serve.active_slots": d["active_slots"],
-             "serve.pending_handoffs": d["pending_handoffs"],
-             "serve.tokens_emitted": d["tokens_emitted"],
-             "serve.pool_occupancy": ps["pool_occupancy"],
-             "serve.kv_bits": ps["kv_bits"],
-             "serve.kv_pool_bytes": ps["kv_pool_bytes"],
-             "serve.bytes_per_resident_token":
-                 ps["bytes_per_resident_token"],
-             "serve.handoff_bytes_sent": int(
-                 self.transport.stats.summary()
-                 .get("handoff_send", {}).get("bytes", 0))}
+        dpxmon.set_gauge("serve.queue_depth", len(self.scheduler))
+        dpxmon.set_gauge("serve.handoff_in_flight", self.handoff_count())
+        dpxmon.set_gauge("serve.active_slots", d["active_slots"])
+        dpxmon.set_gauge("serve.pending_handoffs", d["pending_handoffs"])
+        dpxmon.set_gauge("serve.tokens_emitted", d["tokens_emitted"])
+        dpxmon.set_gauge("serve.pool_occupancy", ps["pool_occupancy"])
+        dpxmon.set_gauge("serve.kv_bits", ps["kv_bits"])
+        dpxmon.set_gauge("serve.kv_pool_bytes", ps["kv_pool_bytes"])
+        dpxmon.set_gauge("serve.bytes_per_resident_token",
+                         ps["bytes_per_resident_token"])
+        dpxmon.set_gauge("serve.handoff_bytes_sent", int(
+            self.transport.stats.summary()
+            .get("handoff_send", {}).get("bytes", 0)))
         if self.decode.spec_proposed:
-            m["serve.spec_acceptance_rate"] = (self.decode.spec_accepted
-                                               / self.decode.spec_proposed)
-            m["serve.spec_tokens_per_iteration"] = (
-                self.decode.spec_tokens / max(self.decode.spec_iters, 1))
-        self.metrics.event("metrics_snapshot", source="serve_disagg_engine",
-                           step=iteration, metrics=m)
+            dpxmon.set_gauge("serve.spec_acceptance_rate",
+                             self.decode.spec_accepted
+                             / self.decode.spec_proposed)
+            dpxmon.set_gauge("serve.spec_tokens_per_iteration",
+                             self.decode.spec_tokens
+                             / max(self.decode.spec_iters, 1))
+        dpxmon.emit_snapshot(path=self.metrics.path, step=iteration,
+                             source="serve_disagg_engine")

@@ -46,11 +46,13 @@ import numpy as np
 import torch
 
 from ..models.generate import _check_attn_compatible, _model_window, _sample
+from ..obs import metrics as dpxmon
+from ..obs import trace as dpxtrace
 from ..runtime import env as _env
 from ..runtime.device import default_generator
 from ..utils.logging import MetricsLogger
 from .cache import SlotPool
-from .metrics import request_record
+from .metrics import emit_request_trace, request_record
 from .pages import PagedSlotPool
 from .scheduler import AdmissionScheduler
 from .spec import SpecConfig, SpecState, accept_greedy
@@ -252,7 +254,13 @@ class InferenceEngine:
                 raise EngineStopped("engine is shut down")
             rid = self._next_id
             self._next_id += 1
-        self._validate(prompt, sp, rid)
+        try:
+            self._validate(prompt, sp, rid)
+        except AdmissionRejected:
+            # synchronous rejections are a health signal (the
+            # back-pressure rate a quota or saturation rule watches)
+            dpxmon.inc("serve.rejected")
+            raise
         if generator is None and sp.temperature != 0.0:
             generator = default_generator(self.device, rid)
         now = time.monotonic()
@@ -260,7 +268,8 @@ class InferenceEngine:
                       generator=generator, submit_t=now,
                       deadline_t=(now + sp.deadline_ms / 1e3
                                   if sp.deadline_ms is not None else None),
-                      on_token=on_token, tenant=tenant)
+                      on_token=on_token, tenant=tenant,
+                      trace_id=dpxtrace.new_trace_id())
         req.handle = RequestHandle(req)
         # enqueue under the lock the stop flag lives behind: a submit
         # racing shutdown either raises or lands before the final drain
@@ -270,13 +279,19 @@ class InferenceEngine:
             if (tenant is not None and self._tenant_max > 0
                     and self._tenant_inflight.get(tenant, 0)
                     >= self._tenant_max):
+                dpxmon.inc("serve.rejected")
+                dpxmon.inc(f"serve.rejected.tenant.{tenant}")
                 raise AdmissionRejected(
                     f"request {rid}: tenant {tenant!r} already has "
                     f"{self._tenant_inflight[tenant]} inflight "
                     f"request(s) (DPX_SERVE_TENANT_MAX_INFLIGHT="
                     f"{self._tenant_max})", reason="tenant_quota",
                     tenant=tenant, request_id=rid)
-            self._scheduler.submit(req)   # may raise AdmissionRejected
+            try:
+                self._scheduler.submit(req)  # may raise AdmissionRejected
+            except AdmissionRejected:
+                dpxmon.inc("serve.rejected")
+                raise
             if tenant is not None:
                 self._tenant_inflight[tenant] = \
                     self._tenant_inflight.get(tenant, 0) + 1
@@ -389,30 +404,35 @@ class InferenceEngine:
         return out
 
     def _emit_snapshot(self) -> None:
-        """The engine's gauges as one ``metrics_snapshot`` event (the
-        JAX engine's dpxmon snapshot record)."""
-        m = {"serve.queue_depth": len(self._scheduler),
-             "serve.active_slots": len(self._running),
-             "serve.slot_occupancy": len(self._running)
-             / self.config.n_slots,
-             "serve.tokens_emitted": self._tokens_emitted}
+        """The one periodic-metrics path (obs/metrics.py): the engine's
+        gauges land in the dpxmon registry, which emits a rank-attributed
+        ``metrics_snapshot`` event into this engine's metrics log."""
+        if not dpxmon.enabled():
+            return
+        dpxmon.set_gauge("serve.queue_depth", len(self._scheduler))
+        dpxmon.set_gauge("serve.active_slots", len(self._running))
+        dpxmon.set_gauge("serve.slot_occupancy",
+                         len(self._running) / self.config.n_slots)
+        dpxmon.set_gauge("serve.tokens_emitted", self._tokens_emitted)
         if self._paged:
             ps = self.pool.page_stats()
-            m.update({"serve.pool_occupancy": ps["pool_occupancy"],
-                      "serve.free_pages": ps["free_pages"],
-                      "serve.prefix_hit_rate": ps["prefix_hit_rate"] or 0.0,
-                      "serve.page_evictions": ps["evictions"],
-                      "serve.kv_bits": ps["kv_bits"],
-                      "serve.kv_pool_bytes": ps["kv_pool_bytes"],
-                      "serve.bytes_per_resident_token":
-                          ps["bytes_per_resident_token"]})
+            dpxmon.set_gauge("serve.pool_occupancy", ps["pool_occupancy"])
+            dpxmon.set_gauge("serve.free_pages", ps["free_pages"])
+            dpxmon.set_gauge("serve.prefix_hit_rate",
+                             ps["prefix_hit_rate"] or 0.0)
+            dpxmon.set_gauge("serve.page_evictions", ps["evictions"])
+            # the storage width rides as numeric bits: 32 / 8 / 4
+            dpxmon.set_gauge("serve.kv_bits", ps["kv_bits"])
+            dpxmon.set_gauge("serve.kv_pool_bytes", ps["kv_pool_bytes"])
+            dpxmon.set_gauge("serve.bytes_per_resident_token",
+                             ps["bytes_per_resident_token"])
         if self._spec is not None and self._spec_proposed:
-            m["serve.spec_acceptance_rate"] = (self._spec_accepted
-                                               / self._spec_proposed)
-            m["serve.spec_tokens_per_iteration"] = (
-                self._spec_tokens / max(self._spec_iters, 1))
-        self.metrics.event("metrics_snapshot", source="serve_engine",
-                           step=self._iteration, metrics=m)
+            dpxmon.set_gauge("serve.spec_acceptance_rate",
+                             self._spec_accepted / self._spec_proposed)
+            dpxmon.set_gauge("serve.spec_tokens_per_iteration",
+                             self._spec_tokens / max(self._spec_iters, 1))
+        dpxmon.emit_snapshot(path=self.metrics.path, step=self._iteration,
+                             source="serve_engine")
 
     # -- engine loop -------------------------------------------------------
 
@@ -591,8 +611,11 @@ class InferenceEngine:
         the draft's length rewind."""
         spec = self._spec
         k = spec.cfg.draft_len
+        tracing = dpxtrace.enabled()
         try:
+            t0 = time.monotonic()
             drafts = spec.propose(spec_slots, self._cur_tokens[spec_slots])
+            t1 = time.monotonic()
         except Exception as e:  # noqa: BLE001 — victim containment
             self._spec_fail(spec_slots, e, "propose")
             return
@@ -600,12 +623,27 @@ class InferenceEngine:
         tokens[spec_slots, 0] = self._cur_tokens[spec_slots]
         tokens[spec_slots, 1:] = drafts
         try:
+            t2 = time.monotonic()
             logits, sk, sv = self.pool.spec_verify(
                 torch.from_numpy(tokens).to(self.device))
             logits_np = logits[spec_slots].to(torch.float32).cpu().numpy()
+            t3 = time.monotonic()
         except Exception as e:  # noqa: BLE001 — victim containment
             self._spec_fail(spec_slots, e, "verify")
             return
+        if tracing:
+            # host time: `propose` ends at the draft's sampled tokens on
+            # the host, `verify` at the logits' copy to the host
+            w = dpxtrace.wall_from_mono
+            for slot in spec_slots:
+                req = self._running[slot]
+                dpxtrace.emit_span("serve.spec.propose", w(t0), w(t1),
+                                   trace_id=req.trace_id,
+                                   request_id=req.request_id)
+                dpxtrace.emit_span("serve.spec.verify", w(t2), w(t3),
+                                   trace_id=req.trace_id,
+                                   request_id=req.request_id,
+                                   draft_len=k)
         commit = np.zeros(self.config.n_slots, np.int64)
         emits: Dict[int, List[int]] = {}
         for i, slot in enumerate(spec_slots):
@@ -698,8 +736,22 @@ class InferenceEngine:
         self._tenant_release(req)
         rec = request_record(req, outcome)
         req.handle.metrics = rec
+        if outcome == "ok":
+            # dpxmon SLO instruments: the TTFT / TPOT window histograms
+            # (the p99-ceiling health rules read their summaries)
+            dpxmon.inc("serve.completed")
+            for name in ("ttft_ms", "tpot_ms"):
+                if rec[name] is not None:
+                    dpxmon.observe(f"serve.{name}", rec[name])
+                    if req.tenant is not None:
+                        dpxmon.observe(f"serve.{name}.tenant.{req.tenant}",
+                                       rec[name])
+        else:
+            dpxmon.inc("serve.failed")
+            dpxmon.inc(f"serve.outcome.{outcome}")
         if self.metrics is not None:
             self.metrics.event("serve_request", **rec)
+        emit_request_trace(req, outcome)
         return rec
 
     def _retire(self, req: Request) -> None:
@@ -712,6 +764,10 @@ class InferenceEngine:
         req.state = FAILED
         self._failed += 1
         self._finish(req, outcome)
+        if isinstance(exc, PagePoolExhausted):
+            # an infrastructure failure ships the engine's recent spans
+            # with the typed error (obs/trace.py, best effort)
+            dpxtrace.on_typed_failure(exc)
         req.handle.future.set_exception(exc)
 
     def _tenant_release(self, req: Request) -> None:

@@ -2,9 +2,11 @@
 
 R replica ``InferenceEngine``s (any ``EngineConfig``: contiguous, paged,
 quantized pool) sharing one model, behind a :class:`FleetRouter` with
-prefix-affine routing, spill on exhaustion and typed replica failure
-isolation."""
+prefix-affine routing, spill on exhaustion, typed replica failure
+isolation and SLO-driven elasticity (:class:`FleetAutoscaler`)."""
 
+from .autoscale import (DEFAULT_FLEET_RULES, AutoscaleConfig,
+                        FleetAutoscaler)
 from .placement import least_loaded, prefix_key, rendezvous, spill_order
 from .router import FLEET_OP, FleetRouter
 from .types import (REPLICA_DRAINING, REPLICA_FAILED, REPLICA_LIVE,
@@ -13,7 +15,8 @@ from .types import (REPLICA_DRAINING, REPLICA_FAILED, REPLICA_LIVE,
 
 __all__ = [
     "FleetRouter", "FleetConfig", "FleetHandle", "Replica",
-    "ReplicaFailed", "FLEET_OP", "prefix_key", "rendezvous",
+    "ReplicaFailed", "FleetAutoscaler", "AutoscaleConfig",
+    "DEFAULT_FLEET_RULES", "FLEET_OP", "prefix_key", "rendezvous",
     "least_loaded", "spill_order", "REPLICA_LIVE", "REPLICA_DRAINING",
     "REPLICA_FAILED", "REPLICA_RETIRED",
 ]

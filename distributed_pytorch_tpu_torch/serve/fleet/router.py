@@ -27,9 +27,13 @@ whichever replica, and engine-local id, serves it.
 Fleet events go to the metrics log through ``utils.logging.append_event``
 with the JAX package's names and fields (``fleet_route``, ``fleet_spill``,
 ``replica_failed``, ``replica_drained``, ``fleet_scale``), and the
-fleet's gauges as a ``metrics_snapshot`` event. Not ported yet: the
-``faults.on_comm_op(FLEET_OP)`` hook of ``submit`` and the
-``FleetAutoscaler`` (ROADMAP.md Queue A item 6).
+fleet's gauges through the dpxmon registry: a started fleet is the
+registry's ``fleet`` provider, its routes, spills, rejections, failures,
+drains and scale events are ``fleet.*`` counters, and
+:meth:`emit_snapshot` writes one rank-attributed ``metrics_snapshot``
+naming the admitting replicas (``serve/fleet/autoscale.py`` scales on
+that). Not ported yet: the ``faults.on_comm_op(FLEET_OP)`` hook of
+``submit``, which comes with the fault layer.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ...obs import metrics as dpxmon
 from ...runtime import env as _env
 from ...runtime.device import default_generator
 from ...utils.logging import append_event
@@ -118,12 +123,14 @@ class FleetRouter:
             for rep in self._replicas.values():
                 if rep.state == REPLICA_LIVE:
                     rep.engine.start()
+        dpxmon.register_provider("fleet", self._provider)
         return self
 
     def shutdown(self) -> None:
         """Orderly stop: every live or draining replica shuts down (its
         in-flight requests fail ``EngineStopped``, not ``ReplicaFailed``:
         the caller asked for this)."""
+        dpxmon.unregister_provider("fleet")
         with self._lock:
             reps = list(self._replicas.values())
             self._started = False
@@ -187,6 +194,7 @@ class FleetRouter:
         key = placement.prefix_key(prompt, self._page_len)
         admitting = self._admitting()
         if not admitting:
+            dpxmon.inc("fleet.rejected")
             raise AdmissionRejected(
                 f"fleet request {fid}: no live replica admits traffic",
                 reason="fleet_exhausted", request_id=fid)
@@ -214,6 +222,7 @@ class FleetRouter:
                 last_reject = e           # died between the checks
                 continue
             return self._routed(fid, home, rid, rep, inner)
+        dpxmon.inc("fleet.rejected")
         exc = AdmissionRejected(
             f"fleet request {fid}: every live replica "
             f"({len(admitting)}) rejected admission, fleet exhausted",
@@ -231,7 +240,9 @@ class FleetRouter:
                 self._spills += 1
             else:
                 self._affinity_hits += 1
+        dpxmon.inc("fleet.routed")
         if spilled:
+            dpxmon.inc("fleet.spills")
             append_event("fleet_spill", path=self._path(),
                          request_id=fid, from_replica=home,
                          to_replica=rid,
@@ -263,6 +274,7 @@ class FleetRouter:
             ReplicaFailed(f"replica {rid} {reason}", replica=rid))
         append_event("replica_failed", path=self._path(), rank=rid,
                      replica=rid, reason=reason, inflight=inflight)
+        dpxmon.inc("fleet.replica_failures")
         self.emit_snapshot()
 
     def drain_replica(self, rid: int, *, timeout_s: float = 120.0,
@@ -303,6 +315,7 @@ class FleetRouter:
         append_event("fleet_scale", path=self._path(), action="drain",
                      rank=rid, replica=rid, rule=rule, reason=reason,
                      replicas=len(self._admitting()))
+        dpxmon.inc("fleet.replicas_drained")
         self.emit_snapshot()
         return True
 
@@ -314,6 +327,7 @@ class FleetRouter:
         append_event("fleet_scale", path=self._path(), action="add",
                      rank=rep.rid, replica=rep.rid, rule=rule,
                      reason=reason, replicas=len(self._admitting()))
+        dpxmon.inc("fleet.scale_events")
         self.emit_snapshot()
         return rep.rid
 
@@ -339,6 +353,7 @@ class FleetRouter:
         append_event("fleet_scale", path=self._path(), action="revive",
                      rank=rid, replica=rid, attempt=attempt,
                      reason="relaunch", replicas=len(self._admitting()))
+        dpxmon.inc("fleet.scale_events")
         self.emit_snapshot()
         return rid
 
@@ -371,9 +386,10 @@ class FleetRouter:
                 else None,
                 "completed": completed, "failed": failed}
 
-    def snapshot_metrics(self) -> Dict[str, float]:
-        """The fleet's gauges and each replica's queue depth and
-        occupancy (the JAX router's dpxmon provider)."""
+    def _provider(self) -> Dict[str, float]:
+        """The dpxmon ``fleet`` provider: the fleet's gauges and each
+        replica's queue depth and occupancy, which the SLO scale rules
+        and ``tools/dpxmon.py`` replay read."""
         with self._lock:
             reps = [r for r in self._replicas.values()
                     if r.state in (REPLICA_LIVE, REPLICA_DRAINING)]
@@ -395,13 +411,15 @@ class FleetRouter:
         return out
 
     def emit_snapshot(self, step: Optional[int] = None) -> None:
-        """One ``metrics_snapshot`` event of the fleet (its gauges and the
-        current admitting set as ``replicas``), when a metrics log is
-        configured."""
-        if self._path() is None:
+        """One fleet-attributed ``metrics_snapshot``: the registry (the
+        ``fleet`` provider's per-replica gauges included) and a
+        ``replicas`` field naming the admitting set, the clean
+        observation that recovers each named replica's failure stream
+        in ``obs/health.py``."""
+        if not dpxmon.enabled():
             return
-        append_event("metrics_snapshot", path=self._path(),
-                     source="serve_fleet",
-                     step=step if step is not None else self._routes,
-                     replicas=self._admitting(),
-                     metrics=self.snapshot_metrics())
+        dpxmon.emit_snapshot(path=self._path(),
+                             step=step if step is not None
+                             else self._routes,
+                             source="serve_fleet",
+                             replicas=self._admitting())

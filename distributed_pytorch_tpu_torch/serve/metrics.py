@@ -1,7 +1,6 @@
 """Per-request SLO metrics: TTFT, TPOT and their aggregates.
 
-The port's copy of ``distributed_pytorch_tpu/serve/metrics.py`` (trace
-emission waits for the observability slice):
+The port's copy of ``distributed_pytorch_tpu/serve/metrics.py``:
 
 - **TTFT**: submit -> first emitted token, queue wait included.
 - **TPOT**: mean inter-token gap after the first token,
@@ -15,12 +14,20 @@ decode engine) + ``decode_ms`` (taken off -> first token sampled), with
 the frame's ``handoff_bytes``. Every token, the first too, comes from
 the decode engine, so TPOT is decode-engine time only. The spans are
 absent for the monolithic engine.
+
+At retirement :func:`emit_request_trace` turns the request's lifecycle
+stamps into one dpxtrace span tree under its ``trace_id``: a
+``serve.request`` root with ``serve.queue`` / ``serve.prefill`` /
+``serve.handoff`` / ``serve.decode`` / ``serve.stream`` children, which
+telescope to TTFT.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
+from ..obs import trace as _dpxtrace
 from .types import Request
 
 
@@ -33,6 +40,7 @@ def request_record(req: Request, outcome: str) -> Dict:
         if n > 1 and req.last_token_t is not None:
             tpot_ms = (req.last_token_t - req.first_token_t) * 1e3 / (n - 1)
     rec = {"request_id": req.request_id, "outcome": outcome,
+           "trace_id": req.trace_id,
            "prompt_len": int(len(req.prompt)), "n_tokens": n,
            "ttft_ms": ttft_ms, "tpot_ms": tpot_ms,
            "queue_ms": ((req.admit_t - req.submit_t) * 1e3
@@ -60,6 +68,52 @@ def request_record(req: Request, outcome: str) -> Dict:
                             and req.first_token_t is not None else None)
         rec["handoff_bytes"] = req.handoff_bytes
     return rec
+
+
+def emit_request_trace(req: Request, outcome: str) -> None:
+    """The request's dpxtrace span tree, made at retirement from the
+    lifecycle stamps the engines keep on the :class:`~.types.Request`
+    (``submit_t`` / ``admit_t`` / ``handoff_send_t`` / ``handoff_recv_t``
+    / ``first_token_t`` / ``last_token_t``, all ``time.monotonic``): a
+    root ``serve.request`` carrying the request's one ``trace_id``, so a
+    disaggregated request renders as one timeline across the prefill ->
+    handoff -> decode split, and children that are by construction the
+    TTFT decomposition of :func:`request_record` (queue + prefill +
+    handoff + decode telescope to ``first_token_t - submit_t``). A no-op
+    unless ``DPX_TRACE``."""
+    if not _dpxtrace.enabled():
+        return
+    w = _dpxtrace.wall_from_mono
+    now = time.monotonic()
+    root = _dpxtrace.emit_span(
+        "serve.request", w(req.submit_t), w(now),
+        trace_id=req.trace_id, request_id=req.request_id,
+        outcome=outcome, n_tokens=len(req.out_tokens),
+        prompt_len=int(len(req.prompt)))
+    spans = []
+    if req.admit_t is not None:
+        spans.append(("serve.queue", req.submit_t, req.admit_t))
+        if req.handoff_send_t is not None:
+            # the disaggregated decomposition: prefill, handoff, decode
+            spans.append(("serve.prefill", req.admit_t,
+                          req.handoff_send_t))
+            if req.handoff_recv_t is not None:
+                spans.append(("serve.handoff", req.handoff_send_t,
+                              req.handoff_recv_t))
+                if req.first_token_t is not None:
+                    spans.append(("serve.decode", req.handoff_recv_t,
+                                  req.first_token_t))
+        elif req.first_token_t is not None:
+            # monolithic: the admission's prefill and first sample
+            spans.append(("serve.prefill", req.admit_t,
+                          req.first_token_t))
+    if (req.first_token_t is not None and req.last_token_t is not None
+            and len(req.out_tokens) > 1):
+        spans.append(("serve.stream", req.first_token_t,
+                      req.last_token_t))
+    for name, t0, t1 in spans:
+        _dpxtrace.emit_span(name, w(t0), w(t1), trace_id=req.trace_id,
+                            parent_id=root, request_id=req.request_id)
 
 
 def percentile(xs: List[float], q: float) -> Optional[float]:

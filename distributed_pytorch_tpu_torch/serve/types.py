@@ -178,6 +178,10 @@ class Request:
     spec_proposed: int = 0
     spec_accepted: int = 0
     retire_iteration: Optional[int] = None
+    #: dpxtrace lineage (obs/trace.py): one trace id, given at submit,
+    #: that every lifecycle span of the request carries, across the
+    #: engine thread and the disaggregated prefill -> decode split
+    trace_id: Optional[str] = None
     first_token_t: Optional[float] = None
     last_token_t: Optional[float] = None
     # disaggregated serving (serve/disagg/): the frame leaves the prefill

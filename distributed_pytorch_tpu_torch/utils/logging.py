@@ -13,9 +13,9 @@ import json
 import os
 import sys
 import threading
-import time
 from typing import Any, Dict, Optional
 
+from ..obs import trace as _dpxtrace
 from ..runtime import context
 from ..runtime import env as _env
 
@@ -29,11 +29,13 @@ def append_event(event: str, path: Optional[str] = None, **fields: Any
     whether a line was written. Each record is one ``O_APPEND`` write,
     so the lines of many rank processes sharing one file stay whole;
     an unwritable file is not an error (the callers are failure paths,
-    which must go on to raise what failed)."""
+    which must go on to raise what failed). The stamp is
+    ``obs.trace.wall_now()``: within one process event times never go
+    backwards, even when the system clock steps."""
     path = path or _env.get("DPX_METRICS_LOG")
     if not path:
         return False
-    rec = {"event": event, "time": time.time(), **fields}
+    rec = {"event": event, "time": _dpxtrace.wall_now(), **fields}
     data = (json.dumps(rec, default=str) + "\n").encode()
     try:
         with _event_lock:
@@ -77,7 +79,8 @@ class MetricsLogger:
         primary only (numbers such as numpy scalars write as floats)."""
         if not is_primary():
             return
-        rec: Dict[str, Any] = {"step": step, "time": time.time(), **metrics}
+        rec: Dict[str, Any] = {"step": step, "time": _dpxtrace.wall_now(),
+                               **metrics}
         line = json.dumps(rec, default=float)
         with self._lock:
             if self._fh is not None:
@@ -91,7 +94,8 @@ class MetricsLogger:
         every rank: off the primary it is appended to the file as one
         write (``append_event``), since the primary may not live to
         write a failure."""
-        rec: Dict[str, Any] = {"event": event, "time": time.time(), **fields}
+        rec: Dict[str, Any] = {"event": event,
+                               "time": _dpxtrace.wall_now(), **fields}
         line = json.dumps(rec, default=str)
         with self._lock:
             if self._fh is not None:

@@ -30,6 +30,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..obs import trace as _dpxtrace
 from ..runtime.context import map_tensors
 
 # ---------------------------------------------------------------------------
@@ -116,11 +117,16 @@ class CommStats:
     @contextlib.contextmanager
     def timed(self, op: str, nbytes: int, hidden: bool = False):
         """Time a collective, record its wire bytes, and name it on the
-        trace timeline (``comm:<op>``)."""
+        trace timeline (``comm:<op>``); with ``DPX_TRACE`` on also a
+        dpxtrace span of that name (obs/trace.py), which puts every comm
+        op on the cross-rank timeline with its overlapped-vs-exposed
+        attribution (``hidden``)."""
         t0 = time.perf_counter()
         try:
             with annotate(f"comm:{op}"):
-                yield
+                with _dpxtrace.span(f"comm:{op}", bytes=int(nbytes),
+                                    hidden=hidden):
+                    yield
         finally:
             self.record(op, nbytes, time.perf_counter() - t0,
                         hidden=hidden)

@@ -106,6 +106,96 @@ def _run(step, model, opt_state, batches, index, n, after=()):
     return losses, opt_state, snaps
 
 
+def q8_state(state):
+    """An ``adamw_8bit`` state's codes, scales and midpoints as whole
+    numpy arrays (codes gathered where sharded; every rank calls it)."""
+    def whole(t):
+        t = t.full_tensor() if hasattr(t, "full_tensor") else t
+        return t.detach().cpu().numpy()
+    return {f: [[whole(t) for t in node] for node in getattr(state, f)]
+            for f in ("mu", "nu")}
+
+
+def q8_layout(model, state, specs, axes):
+    """Each ``adamw_8bit`` node's placements (codes, then scales) beside
+    the ones ``opt_state_specs`` and ``convert.spec_placements`` give."""
+    from distributed_pytorch_tpu_torch.convert import spec_placements
+    from distributed_pytorch_tpu_torch.parallel import fsdp
+    from distributed_pytorch_tpu_torch.parallel.tensor import specs_by_param
+    slots = [slot for slot, _ in specs_by_param(model, specs)]
+    want = fsdp.opt_state_specs(state, specs, model)
+    got, exp = [], []
+    for field in ("mu", "nu"):
+        for node, wnode, slot in zip(getattr(state, field),
+                                     getattr(want, field), slots):
+            got.append([placements_str(t) for t in node])
+            exp.append([str(spec_placements(sp, slot, axes))
+                        for sp in wnode])
+    return got, exp
+
+
+#: (shape, placements by mesh dimension) of the sharded quantizer cases:
+#: shards that end mid-block (3 x 100 over two rows-shards: block 0 spans
+#: both ranks), column shards (every block interleaves the ranks), a
+#: single short block, a replicated tensor
+Q8_CASES_DP = [((3, 100), ("S0",)), ((10, 300), ("S1",)),
+               ((1000,), ("S0",)), ((7,), ("S0",)), ((5, 77), ("R",))]
+#: training steps of adamw_8bit on the dp x tp layout
+Q8_TP_STEPS = 2
+#: the same on the dp x tp mesh, both dimensions sharded; "T0" is
+#: FSDP2's _StridedShard of a dimension tp shards too
+Q8_CASES_DP_TP = [((6, 130), ("S0", "S1")), ((9, 70), ("S1", "S0")),
+                  ((12, 50), ("S0", "S0")), ((12, 70), ("T0", "S0"))]
+
+
+def q8_quant_cases(mesh, cases, seed=0):
+    """The port's sharded int8 quantizers (``optim._q8_quant_sharded`` /
+    ``_q8_quant_log_sharded`` and their dequantizers) on seeded tensors
+    laid out by ``cases``, gathered: per case the codes, scales (and
+    midpoints), dequantized values, the tensor itself, and whether this
+    rank's shard took the contiguous ``span`` path or per-element
+    ``ids``."""
+    import numpy as np
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    from distributed_pytorch_tpu_torch import optim
+    names = list(mesh.mesh_dim_names)
+
+    def placement(pl):
+        if pl == "R":
+            return Replicate()
+        if pl.startswith("T"):
+            return _StridedShard(int(pl[1]), split_factor=mesh["tp"].size())
+        return Shard(int(pl[1]))
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape, pls in cases:
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        placements = [Replicate()] * mesh.ndim
+        for k, pl in enumerate(pls):
+            placements[names.index(("dp", "tp")[k])] = placement(pl)
+        d = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False).redistribute(mesh, placements)
+        blocks = optim._ShardBlocks(d, optim._Q8_BLOCK)
+        out_layout = ("span" if blocks.span is not None else "ids")
+        lin = optim._q8_quant_sharded(d, blocks)
+        log = optim._q8_quant_log_sharded(d.abs(), blocks)
+        out.append({
+            "x": x.numpy(), "q": lin.q.full_tensor().numpy(),
+            "scale": lin.scale.to_local().numpy(),
+            "deq": optim._local_like(optim._q8_dequant_sharded(lin, blocks),
+                                     d)
+            .full_tensor().numpy(),
+            "log_q": log.q.full_tensor().numpy(),
+            "log_scale": log.scale.to_local().numpy(),
+            "log_mid": log.mid.to_local().numpy(),
+            "log_deq": optim._local_like(
+                optim._q8_dequant_log_sharded(log, blocks), d)
+            .full_tensor().numpy(), "blocks": out_layout})
+    return out
+
+
 # (case, rung, optimizer, steps, mixed_precision)
 LADDER = [("rep", "rep", "adamw", 4, "off"),
           ("zero1", "zero1", "adamw", 4, "off"),
@@ -122,7 +212,8 @@ LADDER = [("rep", "rep", "adamw", 4, "off"),
 
 def ladder_worker(rank, world, out_dir, params, batches):
     """Every case of :data:`LADDER` from the same weights and batches,
-    then ``adamw_8bit`` on each rung (which must refuse)."""
+    then ``adamw_8bit`` on ZeRO-1/2/3, and the sharded int8 quantizers
+    on the layouts of :data:`Q8_CASES_DP`."""
     import distributed_pytorch_tpu_torch as dist
     from distributed_pytorch_tpu_torch.parallel import (fsdp,
                                                         make_train_step,
@@ -168,17 +259,22 @@ def ladder_worker(rank, world, out_dir, params, batches):
             r["fsdp_specs"] = specs
         rec[case] = r
 
+    # adamw_8bit on every rung, each rank on the WHOLE batch: the mean of
+    # identical gradients is exact, so the codes and scales can be held
+    # to the replicated world-1 step's bit for bit
     rec["adamw8bit"] = {}
     for rung in ("zero1", "zero2", "zero3"):
         model = build(params)
         opt = optimizer("adamw8bit")
-        step, _ = make(rung, opt, model, "off")
-        try:
-            step(model, opt.init(model.parameters()),
-                 local(batches[0], rank, world))
-            rec["adamw8bit"][rung] = None
-        except NotImplementedError as e:
-            rec["adamw8bit"][rung] = str(e)
+        step, specs = make(rung, opt, model, "off")
+        state = opt.init(model.parameters())
+        losses, state, snaps = _run(step, model, state, batches, 0, 1,
+                                    after=(len(batches),))
+        rec["adamw8bit"][rung] = {
+            "losses": losses, "params": snaps[len(batches)],
+            "q8": q8_state(state),
+            "layout": q8_layout(model, state, specs, ("dp",))}
+    rec["q8_quant"] = q8_quant_cases(mesh, Q8_CASES_DP)
     if rank == 0:
         torch.save(rec, os.path.join(out_dir, "ladder.pt"))
 
@@ -292,5 +388,57 @@ def fsdp_tp_worker(rank, world, out_dir, params, batches):
            "placements": {n: placements_str(p)
                           for n, p in model.named_parameters()},
            "state_placements": [placements_str(t) for t in state.mu]}
+
+    # adamw_8bit on the same dp x tp layout: a training run, then the
+    # optimizer alone on seeded whole gradients laid out as each
+    # parameter, beside the replicated update of the same values
+    model = tensor.tensor_parallel_lm(build(params), mesh)
+    opt = optimizer("adamw8bit")
+    step = fsdp.make_fsdp_train_step(loss_fn, opt, mesh, specs)
+    losses, state, _ = _run(step, model, opt.init(model.parameters()),
+                            batches[:Q8_TP_STEPS], dp_index, 2)
+    rec["adamw8bit"] = {"losses": losses,
+                        "layout": q8_layout(model, state, specs,
+                                            ("dp", "tp"))}
+    rec["adamw8bit_update"] = q8_update_on_layout(model, opt, state)
+    rec["q8_quant"] = q8_quant_cases(mesh, Q8_CASES_DP_TP)
     if rank == 0:
         torch.save(rec, os.path.join(out_dir, "fsdp_tp.pt"))
+
+
+def q8_update_on_layout(model, opt, state, steps=2, seed=5):
+    """``steps`` updates of ``opt`` (``adamw_8bit``) from ``state`` on the
+    ZeRO-3 model's parameters as its optimizer sees them, with seeded
+    whole gradients (the same on every rank, each laid out as its
+    parameter), beside the same updates on whole copies of the
+    parameters and of the state: per side the gathered parameters,
+    codes, scales and midpoints."""
+    import numpy as np
+    from torch.distributed.tensor import DTensor, Replicate
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    from distributed_pytorch_tpu_torch.parallel import fsdp
+    params = fsdp._zero3_views(model, model._dpx_fsdp)
+    plain = [whole(p.detach()).clone() for p in params]
+    plain_state = type(state)(state.step, *[
+        [type(n)(*[whole(t).clone() for t in n]) for n in getattr(state, f)]
+        for f in ("mu", "nu")])
+    rng = np.random.default_rng(seed)
+    for _ in range(steps):
+        grads = [torch.from_numpy(rng.standard_normal(
+            tuple(p.shape)).astype(np.float32)) for p in params]
+        placed = [DTensor.from_local(g, p.device_mesh,
+                                     [Replicate()] * p.device_mesh.ndim,
+                                     run_check=False).redistribute(
+            p.device_mesh, p.placements) for g, p in zip(grads, params)]
+        with torch.no_grad():
+            state = opt.update(placed, state, params)
+            plain_state = opt.update(grads, plain_state, plain)
+    out = {}
+    for side, ps, st in (("sharded", params, state),
+                         ("plain", plain, plain_state)):
+        out[side] = {"params": [whole(p.detach()).numpy() for p in ps],
+                     "q8": q8_state(st)}
+    return out

@@ -26,9 +26,14 @@ JAX package, and the LM trainer's ``--fsdp``.
   step at world 2 after one step, and in its losses over 4 steps (its
   update is normalised per element, so after the first step the
   rounding of its global means reaches the key bias's analytically
-  zero gradient and flips signs there); ``adamw_8bit`` refuses
-  a sharded parameter on every rung with the typed error naming its
-  ROADMAP item. ``mixed_precision="bf16"`` under ZeRO-3 (FSDP2's
+  zero gradient and flips signs there). ``adamw_8bit`` on ZeRO-1/2/3
+  (each rank on the whole batch, so the gradients are world 1's) gives
+  the replicated step's int8 codes, scales and midpoints exactly, its
+  codes placed as the parameters and its scales replicated as the JAX
+  package's ``opt_state_specs`` says; the sharded quantizers alone give
+  the whole tensor's codes (port and JAX) on shards that end mid-block,
+  column shards, a short block and a replicated tensor.
+  ``mixed_precision="bf16"`` under ZeRO-3 (FSDP2's
   ``MixedPrecisionPolicy``, float32 masters and reduction) against the
   replicated bf16 step: losses rtol 2e-3, parameters atol 1e-5 (bf16
   rounding of the forward, a few float32 ulps of the update).
@@ -37,7 +42,7 @@ JAX package, and the LM trainer's ``--fsdp``.
   ``--resume`` round trip under ``--fsdp`` continues exactly; at world
   1 ``--fsdp`` is the plain step, bit for bit.
 
-Serial run time ~60 s (three launches of two ranks and two of the
+Serial run time ~80 s (three launches of two ranks and two of the
 trainer).
 """
 
@@ -306,10 +311,114 @@ def test_zero3_adafactor_uses_global_statistics(ladder):
                                atol=1e-6)
 
 
-def test_adamw_8bit_refuses_a_sharded_parameter(ladder):
-    for rung, msg in ladder["rec"]["adamw8bit"].items():
-        assert msg is not None, rung
-        assert "Queue A item 5.7" in msg and "adamw_8bit" in msg
+@pytest.fixture(scope="module")
+def world1_8bit(ladder):
+    """The port's replicated ``adamw_8bit`` step at world 1 on the whole
+    batches, with its codes and scales."""
+    model = fw.build(ladder["params"])
+    opt = fw.optimizer("adamw8bit")
+    step = make_train_step(fw.lm_loss, opt)
+    losses, state, snaps = fw._run(step, model,
+                                   opt.init(model.parameters()),
+                                   ladder["batches"], 0, 1,
+                                   after=(STEPS,))
+    return {"losses": losses, "params": snaps[STEPS],
+            "q8": fw.q8_state(state)}
+
+
+def test_adamw_8bit_refuses_a_sharded_parameter(ladder, world1_8bit):
+    """``adamw_8bit`` on sharded parameters: under ZeRO-1, ZeRO-2 and
+    ZeRO-3 at dp 2 (each rank on the whole batch, so every gradient is
+    the world-1 one) the int8 codes, block scales and midpoints after 4
+    steps equal the replicated world-1 step's exactly, and so do the
+    losses and parameters to the tolerance of the other rungs."""
+    want = world1_8bit
+    for rung, got in ladder["rec"]["adamw8bit"].items():
+        np.testing.assert_allclose(got["losses"], want["losses"],
+                                   rtol=1e-5, atol=1e-6, err_msg=rung)
+        _assert_trees_close(got["params"], want["params"])
+        for field in ("mu", "nu"):
+            for g_node, w_node in zip(got["q8"][field], want["q8"][field]):
+                for g, w in zip(g_node, w_node):
+                    np.testing.assert_array_equal(g, w, err_msg=rung)
+
+
+@pytest.mark.parametrize("rung", ["zero1", "zero2", "zero3"])
+def test_adamw_8bit_state_sits_where_jax_places_it(ladder, rung):
+    """The codes lie as their parameter, the scales and midpoints
+    replicated: the port's state against the JAX package's
+    ``opt_state_specs`` of its own ``adamw_8bit`` state, each node's
+    specs mapped through ``convert.spec_placements``."""
+    got, exp = ladder["rec"]["adamw8bit"][rung]["layout"]
+    assert got == exp
+    if rung != "zero3":
+        return
+    params = ladder["params"]
+    jstate = joptim.adamw_8bit(fw.LR).init(
+        jax.tree_util.tree_map(jax.numpy.asarray, params))
+    jspecs = jfsdp.opt_state_specs(jstate, jfsdp.fsdp_param_specs(
+        params, WORLD), params=params)
+    pm = fw.build(params)
+    is_q8 = lambda x: isinstance(x, (joptim.Q8Moment, joptim.Q8LogMoment))
+    want = []
+    for field, node_type in (("mu", joptim.Q8Moment),
+                             ("nu", joptim.Q8LogMoment)):
+        tree = getattr(jspecs, field)
+        per_attr = [[str(spec_placements(sp, slot, ("dp",)))
+                     for slot, sp in tensor.specs_by_param(
+                         pm, jax.tree_util.tree_map(
+                             lambda n, a=attr: getattr(n, a), tree,
+                             is_leaf=is_q8))]
+                    for attr in node_type._fields]
+        want += [list(node) for node in zip(*per_attr)]
+    assert got == want
+
+
+@pytest.mark.parametrize("case", range(len(fw.Q8_CASES_DP)))
+def test_sharded_int8_quantizers_equal_the_whole_tensors(ladder, case):
+    """The sharded quantizers on 2 ranks (shards that end mid-block,
+    column shards, one short block, a replicated tensor; the contiguous
+    shards through the reshape path, the column shard through per-element
+    block ids) give the codes,
+    scales and dequantized values of the port's quantizers on the whole
+    tensor bit for bit, and the JAX package's linear codes and scales
+    bit for bit (its log moment to XLA's last-ulp log)."""
+    rec = ladder["rec"]["q8_quant"][case]
+    assert rec["blocks"] == ("ids" if case == 1 else "span")
+    _check_q8_case(rec)
+
+
+def _check_q8_case(rec):
+    x = rec["x"]
+    for lib, q, ql, deq, deql in (
+            ("port", optim._q8_quant, optim._q8_quant_log,
+             optim._q8_dequant, optim._q8_dequant_log),
+            ("jax", joptim._q8_quant, joptim._q8_quant_log,
+             joptim._q8_dequant, joptim._q8_dequant_log)):
+        arr = torch.from_numpy if lib == "port" else jax.numpy.asarray
+        lin, log = q(arr(x)), ql(arr(np.abs(x)))
+        np.testing.assert_array_equal(rec["q"], np.asarray(lin.q),
+                                      err_msg=lib)
+        np.testing.assert_array_equal(rec["scale"], np.asarray(lin.scale),
+                                      err_msg=lib)
+        if lib == "jax":
+            # XLA's log and torch's differ in the last ulp: the JAX
+            # package's log moment is held to that, a code to one step
+            np.testing.assert_allclose(rec["log_scale"],
+                                       np.asarray(log.scale), rtol=1e-6)
+            np.testing.assert_allclose(rec["log_mid"], np.asarray(log.mid),
+                                       rtol=1e-6)
+            assert np.abs(rec["log_q"].astype(np.int32)
+                          - np.asarray(log.q, np.int32)).max() <= 1
+            continue
+        np.testing.assert_array_equal(rec["log_q"], np.asarray(log.q))
+        np.testing.assert_array_equal(rec["log_scale"], np.asarray(log.scale))
+        np.testing.assert_array_equal(rec["log_mid"], np.asarray(log.mid))
+        if lib == "port":
+            np.testing.assert_array_equal(
+                rec["deq"], np.asarray(deq(lin, x.shape)))
+            np.testing.assert_array_equal(
+                rec["log_deq"], np.asarray(deql(log, x.shape)))
 
 
 def test_zero3_bf16_policy_equals_the_replicated_bf16_step(ladder):

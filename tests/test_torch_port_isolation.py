@@ -58,6 +58,31 @@ def test_no_source_imports_jax_or_the_jax_package(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
+#: ways of loading a module from a file path, which could reach a JAX
+#: package file without an import statement
+_BY_PATH = ("spec_from_file_location", "SourceFileLoader", "run_path",
+            "load_source", "exec(open")
+
+
+@pytest.mark.parametrize("path", sorted(_port_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_source_loads_a_file_by_path(path):
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    assert not [w for w in _BY_PATH if w in text], path
+
+
+def test_the_observability_modules_are_the_ports_own():
+    """The stdlib-only obs / perfbench modules and the autoscaler are
+    copies in the port, loaded from its own tree."""
+    import distributed_pytorch_tpu_torch.obs as obs
+    import distributed_pytorch_tpu_torch.perfbench as perfbench
+    from distributed_pytorch_tpu_torch.serve.fleet import autoscale
+    for mod in (obs, obs.trace, obs.metrics, obs.export, obs.detect,
+                obs.health, perfbench, perfbench.stats, autoscale):
+        assert os.path.commonpath([PKG, mod.__file__]) == PKG, mod
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, distributed_pytorch_tpu_torch, "
             "distributed_pytorch_tpu_torch.serve, "
@@ -91,7 +116,16 @@ def test_importing_the_port_loads_no_jax():
             "distributed_pytorch_tpu_torch.parallel.pipeline, "
             "distributed_pytorch_tpu_torch.models.moe_lm, "
             "distributed_pytorch_tpu_torch.examples.train_long_context, "
-            "distributed_pytorch_tpu_torch.examples.train_moe_lm\n"
+            "distributed_pytorch_tpu_torch.examples.train_moe_lm, "
+            "distributed_pytorch_tpu_torch.obs, "
+            "distributed_pytorch_tpu_torch.obs.trace, "
+            "distributed_pytorch_tpu_torch.obs.metrics, "
+            "distributed_pytorch_tpu_torch.obs.export, "
+            "distributed_pytorch_tpu_torch.obs.detect, "
+            "distributed_pytorch_tpu_torch.obs.health, "
+            "distributed_pytorch_tpu_torch.perfbench, "
+            "distributed_pytorch_tpu_torch.perfbench.stats, "
+            "distributed_pytorch_tpu_torch.serve.fleet.autoscale\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
             "m.startswith(('jax.', 'jaxlib.')) or "
             "m == 'distributed_pytorch_tpu' or "

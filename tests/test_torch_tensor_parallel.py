@@ -24,9 +24,16 @@ unsharded model.
   vocab-parallel loss take 4 ``adamw(3e-4, eps=1e-6)`` steps and equal
   the port's replicated step on the whole batches (losses and final
   parameters ``rtol=1e-5``, ``atol=1e-6``); every parameter and moment
-  carries the dp and tp placements of its spec.
+  carries the dp and tp placements of its spec. In the same launch
+  ``adamw_8bit`` on that layout: 2 updates on seeded whole gradients
+  equal the replicated update's parameters, int8 codes, scales and
+  midpoints bit for bit; its codes lie as the parameters and its scales
+  replicated; 2 training steps track the replicated ``adamw_8bit``
+  step's losses (``rtol=1e-5``; the tensor-parallel products round
+  otherwise, so a code may flip and the parameters are not held); the
+  sharded quantizers on both mesh dimensions equal the whole tensor's.
 
-Serial run time ~25 s.
+Serial run time ~75 s.
 """
 
 import jax
@@ -172,9 +179,40 @@ def test_dp2_tp2_equals_the_replicated_step(fsdp_tp_run):
     _assert_trees_close(got["params"], want["params"][steps])
 
 
-def _port_world1_dense(params, batches):
+def test_dp2_tp2_adamw_8bit(fsdp_tp_run):
+    """``adamw_8bit`` on the dp 2 x tp 2 layout: on the same gradients the
+    update of the sharded parameters gives the replicated update's int8
+    codes, block scales, midpoints and parameters bit for bit; its state
+    lies where ``opt_state_specs`` puts it; the training run tracks the
+    replicated ``adamw_8bit`` step's losses; and the sharded quantizers
+    on both mesh dimensions (a FSDP2 ``_StridedShard`` among them) equal
+    the whole tensor's."""
+    from test_torch_fsdp import _check_q8_case
+    rec = fsdp_tp_run["rec"]
+    upd = rec["adamw8bit_update"]
+    for a, b in zip(upd["sharded"]["params"], upd["plain"]["params"]):
+        np.testing.assert_array_equal(a, b)
+    for field in ("mu", "nu"):
+        for g_node, w_node in zip(upd["sharded"]["q8"][field],
+                                  upd["plain"]["q8"][field]):
+            for g, w in zip(g_node, w_node):
+                np.testing.assert_array_equal(g, w)
+    got, exp = rec["adamw8bit"]["layout"]
+    assert got == exp
+    want = _port_world1_dense(fsdp_tp_run["params"],
+                              fsdp_tp_run["batches"][:fw.Q8_TP_STEPS],
+                              "adamw8bit")
+    np.testing.assert_allclose(rec["adamw8bit"]["losses"], want["losses"],
+                               rtol=1e-5, atol=1e-6)
+    assert [c["blocks"] for c in rec["q8_quant"]] == ["ids", "ids", "span",
+                                                       "ids"]
+    for case in rec["q8_quant"]:
+        _check_q8_case(case)
+
+
+def _port_world1_dense(params, batches, opt_name="adamw"):
     model = fw.build(params)
-    opt = fw.optimizer("adamw")
+    opt = fw.optimizer(opt_name)
     step = make_train_step(fw.lm_loss, opt)
     losses, _, snaps = fw._run(step, model, opt.init(model.parameters()),
                                batches, 0, 1, after=(len(batches),))

@@ -283,12 +283,43 @@ non-zero at once:
               gathered int8 codes and scales equal bit for bit, state
               bytes beside adamw's. 12/12/12 launches per step in (a)
               and (d).
+33. faults (its serving half right after ``serve_fleet``, on its model;
+              the rest last, after ``obs``) — the fault layer
+              (``DPX_FAULT``): (b) serve_paged's 8 greedy requests and
+              2 sampled ones with a self-draft under
+              ``flaky@op=spec_verify``: only speculating requests fail,
+              typed ``SpecDecodeError``, every other stream equals the
+              unfaulted run's; the disaggregated split under
+              ``flaky@op=handoff_send,count=2`` (exactly 2 ``comm_retry``
+              events, streams == serve_paged's) and
+              ``drop_conn@op=handoff_send,call=3`` with requests 0
+              and 1 decoding before the rest are submitted (the prefill
+              engine dies with the link, as in the JAX package: request
+              2, the victim, and 3-7, not yet handed off, fail
+              ``PrefillEngineDied`` each naming itself; 0 and 1 finish
+              equal to serve_paged's); the
+              fleet of 2 under ``drop_conn@op=fleet_submit,call=5``
+              (only the home replica's requests fail, ``ReplicaFailed``
+              naming it, the rest equal serve_paged's); (a) the
+              ``lm_trainer`` run with ``--steps 15 --save DIR
+              --save-every 5 --elastic 1`` under
+              ``kill@op=ckpt_commit_window,call=2,attempt=0``: exit codes
+              (43, 0), the relaunch resumes at step 1 (step 0's save is
+              the last complete one: the async manager commits step 5's
+              at step 10's save), losses 1-14 equal run 3's bit for bit,
+              the log's ``fault_injected`` / ``elastic_worker_exit`` /
+              ``elastic_recovered``, 12/12/12 launches per step counted
+              in the child (its ``train_end`` metrics snapshot), the recovery
+              time from the first child's exit to the relaunched child's
+              first step; (c) ns per ``on_comm_op`` unarmed and armed
+              with a spec that never matches, 20,000 calls a trial.
 
 Then the ``kernels`` line (each kernel's design, ``wgmma+tma`` or
 ``scalar_fma``, as its bf16 path runs it; the forward at both shapes and
 its launches in ``serve_kvq``, ``serve_spec``, ``serve_int8``,
 ``serve_disagg`` and ``serve_fleet``; every row's launches per step in
-each ``host_ddp``, ``fsdp`` and ``front_door`` arm, and in ``obs``),
+each ``host_ddp``, ``fsdp`` and ``front_door`` arm, and in ``obs`` and
+``faults``),
 the nvidia-smi line and, last, the
 result line
 ``{"ok": true, "device": {...}}``.
@@ -2507,7 +2538,7 @@ def phase_lm_trainer(torch, tflash, device, train_step_ms):
             and len(saves) == 3 and saves[-1]["bytes"] > 0):
         fail(f"lm_trainer: run 1 {r1['losses']} run 3 {r3['losses']} "
              f"eval {r3.get('eval_nll')} saves {saves}")
-    return per_step
+    return per_step, r3["losses"]
 
 
 SYSTEM_PROMPT, PAGED_TAILS = 1024, (32, 64, 96, 128, 160, 192, 224, 256)
@@ -4351,6 +4382,336 @@ def phase_obs(torch, port, tflash, device):
             "adamw_8bit_zero3": q8["launches_per_step_zero3"]}
 
 
+FAULT_HOOK_N = 20000          # hook calls per trial of the cost measure
+# the elastic trainer run: its second commit (step 5's, made at step 10's
+# save by the async manager) dies between the renames, on attempt 0
+ELASTIC_FAULT = "kill@op=ckpt_commit_window,call=2,attempt=0"
+# the fleet's fifth routed submit kills its home replica
+FLEET_FAULT = "drop_conn@op=fleet_submit,call=5"
+
+
+def outcomes(handles):
+    """Each handle's stream, or the exception it ended with."""
+    out = []
+    for h in handles:
+        try:
+            out.append(h.result(timeout=900))
+        except Exception as e:  # noqa: BLE001 (judged by the caller)
+            out.append(e)
+    return out
+
+
+def read_events(path, name):
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        recs = [json.loads(x) for x in f if x.strip()]
+    return [r for r in recs if r.get("event") == name]
+
+
+def faults_serving(torch, tflash, model, paged_outs):
+    """The faults phase's serving cases, on the serve phases' model:
+    ``flaky@op=spec_verify`` with a self-draft, ``flaky`` and
+    ``drop_conn`` at the disaggregated split's ``handoff_send``, and a
+    ``drop_conn`` at the fleet's ``fleet_submit``; each case's flash
+    launches set to 0 just before and read just after."""
+    from distributed_pytorch_tpu_torch.runtime import env, faults
+    from distributed_pytorch_tpu_torch.serve import (DisaggConfig,
+                                                     DisaggEngine,
+                                                     EngineConfig,
+                                                     FleetConfig,
+                                                     FleetRouter,
+                                                     InferenceEngine,
+                                                     PrefillEngineDied,
+                                                     ReplicaFailed,
+                                                     SamplingParams,
+                                                     SpecDecodeError)
+    greedy, _ = paged_traffic()
+    rng = np.random.default_rng(7)
+    sampled = [rng.integers(0, FLAGSHIP["vocab"], n).astype(np.int32)
+               for n in PROMPT_LENS[:2]]
+    prompts = greedy + sampled
+    sps = ([SamplingParams(max_new_tokens=SPEC_MAX_NEW)] * len(greedy)
+           + [SamplingParams(max_new_tokens=SPEC_MAX_NEW, temperature=0.8,
+                             top_k=50)] * len(sampled))
+    sp = SamplingParams(max_new_tokens=MAX_NEW)
+    rec, launches, bad = {}, {}, []
+
+    def gens():
+        return [torch.Generator(device=model.device).manual_seed(200 + i)
+                for i in range(len(prompts))]
+
+    def run(case, spec, make, submit_all):
+        """``make()``'s engine with ``spec`` armed: every stream or
+        error, the hook sites that fired and the wall seconds (the flash
+        launches go to ``launches[case]``)."""
+        faults.reset()
+        eng = make()
+        tflash.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with eng:
+                if spec:
+                    faults.install(spec)
+                res = outcomes(submit_all(eng))
+            torch.cuda.synchronize()
+        finally:
+            fired = faults.fired()
+            faults.reset()
+        launches[case] = dict(tflash.LAUNCHES)
+        return res, fired, time.perf_counter() - t0
+
+    # (b1) speculation: a self-draft; the greedy requests speculate
+    spec_cfg = EngineConfig(spec_decode=True, draft_model=model,
+                            draft_len=SPEC_K, n_slots=4, max_len=2048)
+
+    def spec_submit(eng):
+        return [eng.submit(p, s, generator=g)
+                for p, s, g in zip(prompts, sps, gens())]
+    clean, _, _ = run("spec_clean", None,
+                         lambda: InferenceEngine(model, spec_cfg),
+                         spec_submit)
+    res, fired, wall = run("spec_verify",
+                                "flaky@op=spec_verify,count=1",
+                                lambda: InferenceEngine(model, spec_cfg),
+                                spec_submit)
+    victims = [i for i, r in enumerate(res) if isinstance(r, Exception)]
+    others_equal = [bool(np.array_equal(r, c)) for r, c in zip(res, clean)
+                    if not isinstance(r, Exception)]
+    rec["spec_verify"] = dict(
+        fired=fired, victims=victims,
+        errors=[dict(type=type(res[i]).__name__,
+                     stage=getattr(res[i], "stage", None),
+                     request_id=getattr(res[i], "request_id", None))
+                for i in victims],
+        others_equal_unfaulted=others_equal, wall_s=wall,
+        flash_launches=launches["spec_verify"]["flash_attention_fwd"],
+        unfaulted_flash_launches=launches["spec_clean"][
+            "flash_attention_fwd"])
+    if (not victims or any(i >= len(greedy) for i in victims)
+            or not all(isinstance(res[i], SpecDecodeError)
+                       and res[i].stage == "verify" for i in victims)
+            or not all(others_equal) or len(fired) != 1):
+        bad.append(f"spec_verify: {rec['spec_verify']}")
+
+    # (b2, b3) the disaggregated split, exact handoff over f32 pools
+    dcfg = DisaggConfig(n_slots=4, max_len=2048, page_len=PAGE_LEN,
+                        n_pages=N_PAGES, handoff_width="f32", kv_dtype="f32")
+    tmp = tempfile.mkdtemp(prefix="faults_serve_")
+    log = os.path.join(tmp, "events.jsonl")
+    saved = env.snapshot(["DPX_METRICS_LOG"])
+    env.set("DPX_METRICS_LOG", log)
+    try:
+        res, fired, wall = run(
+            "handoff_flaky", "flaky@op=handoff_send,count=2",
+            lambda: DisaggEngine(model, dcfg),
+            lambda eng: [eng.submit(p, sp) for p in greedy])
+        retries = read_events(log, "comm_retry")
+    finally:
+        env.restore(saved)
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = [not isinstance(r, Exception) and bool(np.array_equal(r, w))
+            for r, w in zip(res, paged_outs)]
+    rec["handoff_flaky"] = dict(
+        fired=fired, comm_retry=[(e["op"], e["attempt"]) for e in retries],
+        streams_equal_serve_paged=same, wall_s=wall,
+        flash_launches=launches["handoff_flaky"]["flash_attention_fwd"])
+    if (len(retries) != 2 or not all(same) or len(fired) != 2
+            or any(e["op"] != "handoff_send" for e in retries)):
+        bad.append(f"handoff_flaky: {rec['handoff_flaky']}")
+    handles, decoding = [], []
+
+    def drop_submit(eng):
+        """Requests 0 and 1 are decoding (they have tokens) before the
+        rest arrive, so the third send, request 2's, is the one that
+        severs the link."""
+        handles[:] = [eng.submit(p, sp) for p in greedy[:2]]
+        deadline = time.monotonic() + 300
+        while (not all(h.tokens for h in handles)
+               and time.monotonic() < deadline):
+            time.sleep(0.005)
+        decoding[:] = [i for i, h in enumerate(handles) if h.tokens]
+        handles.extend(eng.submit(p, sp) for p in greedy[2:])
+        return handles
+    res, fired, wall = run("handoff_drop",
+                              "drop_conn@op=handoff_send,call=3",
+                              lambda: DisaggEngine(model, dcfg), drop_submit)
+    failed = [i for i, r in enumerate(res) if isinstance(r, Exception)]
+    rec["handoff_drop"] = dict(
+        fired=fired, decoding_at_fault=list(decoding), failed=failed,
+        outcomes=[type(r).__name__ if isinstance(r, Exception)
+                  else bool(np.array_equal(r, w))
+                  for r, w in zip(res, paged_outs)],
+        victim_request_id=getattr(res[2], "request_id", None),
+        victim_engine=getattr(res[2], "engine", None), wall_s=wall,
+        flash_launches=launches["handoff_drop"]["flash_attention_fwd"])
+    # the prefill engine dies with the link (the JAX package's
+    # semantics): the victim (2) and every request not yet handed off
+    # (3-7) fail typed, each blaming itself; the two already decoding
+    # finish equal to serve_paged's streams
+    if (decoding != [0, 1] or failed != list(range(2, len(greedy)))
+            or not all(isinstance(res[i], PrefillEngineDied)
+                       and res[i].request_id == handles[i].request_id
+                       and res[i].engine == "prefill" for i in failed)
+            or not all(bool(np.array_equal(res[i], paged_outs[i]))
+                       for i in decoding)
+            or fired != ["drop_conn@op=handoff_send,call=3"]):
+        bad.append(f"handoff_drop: {rec['handoff_drop']}")
+
+    # (b4) the fleet of 2: the fifth submit's home replica dies
+    fleets = []
+
+    def make_fleet():
+        fleets[:] = [FleetRouter(model, FleetConfig(
+            n_replicas=2, engine=EngineConfig(
+                n_slots=4, max_len=2048, paged=True, page_len=PAGE_LEN,
+                n_pages=N_PAGES)))]
+        return fleets[0]
+    fleet_handles = []
+
+    def fleet_submit(fleet):
+        home = fleet.home_of(greedy[4])
+        fleet_handles[:] = [fleet.submit(p, sp) for p in greedy]
+        fleet_handles.append(home)
+        return fleet_handles[:-1]
+    res, fired, wall = run("fleet_submit", FLEET_FAULT, make_fleet,
+                              fleet_submit)
+    killed = fleet_handles[-1]
+    routed = [h.replica for h in fleet_handles[:-1]]
+    failed = [i for i, r in enumerate(res) if isinstance(r, Exception)]
+    rec["fleet_submit"] = dict(
+        fired=fired, killed=killed, routed=routed, failed=failed,
+        errors=[dict(type=type(res[i]).__name__,
+                     replica=getattr(res[i], "replica", None))
+                for i in failed],
+        others_equal_serve_paged=[
+            bool(np.array_equal(r, w)) for r, w in zip(res, paged_outs)
+            if not isinstance(r, Exception)],
+        states={rid: r["state"] for rid, r in
+                fleets[0].stats()["replicas"].items()}, wall_s=wall,
+        flash_launches=launches["fleet_submit"]["flash_attention_fwd"])
+    if (not failed or fired != [FLEET_FAULT]
+            or any(not isinstance(res[i], ReplicaFailed)
+                   or res[i].replica != killed or routed[i] != killed
+                   for i in failed)
+            or not all(rec["fleet_submit"]["others_equal_serve_paged"])):
+        bad.append(f"fleet_submit: {rec['fleet_submit']}")
+    del fleets[:]
+    torch.cuda.empty_cache()
+    if bad:
+        emit(phase="faults", part="serving", **rec)
+        fail("faults (serving): " + "; ".join(bad))
+    return dict(record=rec, launches=launches)
+
+
+def hook_cost(faults, stats) -> dict:
+    """ns per ``faults.on_comm_op`` call, unarmed and armed with a spec
+    that never matches, FAULT_HOOK_N calls a trial."""
+    def per_call():
+        t0 = time.perf_counter_ns()
+        for _ in range(FAULT_HOOK_N):
+            faults.on_comm_op("allreduce", rank=0)
+        return (time.perf_counter_ns() - t0) / FAULT_HOOK_N
+
+    faults.reset()
+    out = {"unarmed_ns": stats.measure(per_call).to_dict()}
+    faults.install("delay@op=barrier,rank=7,ms=1")
+    out["armed_no_match_ns"] = stats.measure(per_call).to_dict()
+    if faults.fired():
+        fail(f"faults: the never-matching spec fired {faults.fired()}")
+    faults.reset()
+    return out
+
+
+def phase_faults(torch, tflash, serving, uninterrupted):
+    """(a) ``examples/train_transformer_lm.py --elastic 1`` at the
+    ``lm_trainer`` arguments, killed inside its second commit on attempt
+    0 and relaunched; (c) the hooks' cost; with the serving cases run
+    after ``serve_fleet``, one ``faults`` line."""
+    from distributed_pytorch_tpu_torch.examples import train_transformer_lm
+    from distributed_pytorch_tpu_torch.perfbench import stats
+    from distributed_pytorch_tpu_torch.runtime import env, faults
+    tmp = tempfile.mkdtemp(prefix="faults_")
+    ck, log, mlog = (os.path.join(tmp, n) for n in
+                     ("ck", "events.jsonl", "steps.jsonl"))
+    argv = (LM_TRAINER + ["--text", sysconfig.get_paths()["stdlib"]]
+            + LM_TRAINER_RUN + ["--steps", "15", "--save", ck,
+                                "--save-every", "5", "--elastic", "1",
+                                "--log", mlog])
+    saved = env.snapshot(["DPX_FAULT", "DPX_METRICS_LOG"])
+    env.apply_overrides({"DPX_FAULT": ELASTIC_FAULT, "DPX_METRICS_LOG": log})
+    # the relaunched child's FLAGSHIP run fits beside this process's pool
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        train_transformer_lm.main(argv)
+        wall = time.perf_counter() - t0
+        with open(log) as f:
+            events = [json.loads(x) for x in f if x.strip()]
+        with open(mlog) as f:
+            steps = [json.loads(x) for x in f if x.strip()]
+    finally:
+        env.restore(saved)
+        faults.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    by = {}
+    for e in events:
+        by.setdefault(e.get("event"), []).append(e)
+    exits = by.get("elastic_worker_exit", [])
+    recovered = by.get("elastic_recovered", [])
+    injected = by.get("fault_injected", [])
+    done = [e["metrics"] for e in by.get("metrics_snapshot", [])
+            if e.get("source") == "train_end"]
+    bad = []
+    if not (len(exits) == 1 and len(recovered) == 1 and len(done) == 1):
+        fail(f"faults: elastic events {sorted(by)}: exits {exits}, "
+             f"recovered {recovered}, done {done}")
+    done = done[0]
+    start, end = int(done["train.start_step"]), int(done["train.end_step"])
+    n = end - start
+    losses = [x for x in steps if "loss" in x]
+    resumed = {x["step"]: x["loss"] for x in losses[-n:]}
+    got = [resumed.get(s) for s in range(start, end)]
+    want = uninterrupted[start:end]
+    counts = {name: int(done[f"kernels.{name}.launches"]) for name in KERNELS}
+    per_step = {name: (c - (FLAGSHIP["n_layers"] * done["train.eval_batches"]
+                            if name == "flash_attention_fwd" else 0)) / n
+                for name, c in counts.items()}
+    recovery_s = done["train.first_step_wall"] - exits[0]["time"]
+    rec = dict(
+        argv=argv, fault=ELASTIC_FAULT, wall_s=wall,
+        exitcodes=recovered[0]["exitcodes"], restarts=recovered[0][
+            "restarts"],
+        injected=[(e["rank"], e["action"], e["site"]) for e in injected],
+        resume_start_step=start, end_step=end, resumed_losses=got,
+        uninterrupted_losses=want,
+        resume_max_abs_diff=max(abs(a - b) for a, b in zip(got, want))
+        if None not in got else None,
+        launches=counts, launches_per_step=per_step,
+        eval_batches=int(done["train.eval_batches"]), recovery_s=recovery_s,
+        relaunch_backoff_s=1.0)
+    if recovered[0]["exitcodes"] != [faults.KILL_EXIT_CODE, 0] \
+            or exits[0]["exitcode"] != faults.KILL_EXIT_CODE:
+        bad.append(f"exit codes {recovered[0]['exitcodes']}")
+    if start != 1 or end != 15:
+        bad.append(f"resumed at step {start} to {end}, want 1 to 15")
+    if got != want:
+        bad.append(f"resumed losses {got} vs uninterrupted {want}")
+    if [(e["action"], e["site"]) for e in injected] != [
+            ("kill", "op=ckpt_commit_window,call=2")]:
+        bad.append(f"fault_injected events {injected}")
+    if any(v != FLAGSHIP["n_layers"] for v in per_step.values()):
+        bad.append(f"launches per step in the child {per_step}")
+    cost = hook_cost(faults, stats)
+    emit(phase="faults", card=torch.cuda.get_device_name(0),
+         elastic=rec, hook_cost=cost, **serving["record"])
+    if bad:
+        fail("faults: " + "; ".join(bad))
+    out = dict(serving["launches"])
+    out["elastic_child"] = counts
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4395,6 +4756,8 @@ def main() -> int:
     disagg_launches = phase_serve_disagg(torch, tflash, model, paged_outs,
                                          paged_slo)
     fleet_launches = phase_serve_fleet(torch, tflash, model, paged_outs)
+    # serving under injected faults (the faults phase's serving half)
+    faults_serve = faults_serving(torch, tflash, model, paged_outs)
     phase_serve_lm_example()
     del model
     torch.cuda.empty_cache()
@@ -4439,7 +4802,8 @@ def main() -> int:
 
     # the LM trainer example end to end: checkpoint and resume, device
     # prefetch, eval, generation and a trace
-    trainer_per_step = phase_lm_trainer(torch, tflash, device, step_ms)
+    trainer_per_step, trainer_losses = phase_lm_trainer(torch, tflash,
+                                                        device, step_ms)
 
     # sequence parallelism (LONGCTX through the sp island, then the ring's
     # hops of 4 virtual ranks), the MoE LM, the pipeline schedules
@@ -4450,6 +4814,10 @@ def main() -> int:
     # the observability layer: traced host door, serving and checkpoint,
     # and adamw_8bit on sharded parameters
     obs_launches = phase_obs(torch, port, tflash, device)
+    # the fault layer: the elastic FLAGSHIP trainer killed mid-commit,
+    # the hooks' unarmed cost, and the serving cases run above
+    faults_launches = phase_faults(torch, tflash, faults_serve,
+                                   trainer_losses)
 
     # bf16 at the serving prefill shape (ms, library_ms) and at the
     # FLAGSHIP train shape (train_*), with the design each one ran
@@ -4505,6 +4873,8 @@ def main() -> int:
             s: per_step[name] for s, per_step in pipe_launches.items()}
         row["obs_launches"] = {case: counts.get(name, 0)
                                for case, counts in obs_launches.items()}
+        row["faults_launches"] = {case: counts.get(name, 0)
+                                  for case, counts in faults_launches.items()}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=launches[name], **row)

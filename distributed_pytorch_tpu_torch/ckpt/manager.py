@@ -31,7 +31,11 @@ snapshot), a ``ckpt.io`` span (the write, on the ckpt-io thread when
 async) and a ``ckpt.commit`` span, with ``ckpt.<phase>`` instant events
 at each phase; the commit counts ``ckpt.saves`` and observes
 ``ckpt.snapshot_ms`` / ``ckpt.io_ms`` in the dpxmon registry. The
-``DPX_FAULT`` marks of the JAX manager come with the fault layer.
+save path fires the ``DPX_FAULT`` ops of ``runtime/faults.py``: ``ckpt``
+as each rank's shard write starts (``ckpt/writer.py``), ``ckpt_commit``
+and ``ckpt_commit_window`` in the commit (``utils/checkpoint.py``
+``_commit_full``). An async save commits at the next save or
+``wait()``, so the Nth commit of a process is the Nth save's.
 """
 
 from __future__ import annotations
@@ -293,10 +297,10 @@ class CheckpointManager:
                     _writer.commit(self.ckpt_dir, pend.step, pend.tmp,
                                    pend.plan, pend.extra,
                                    self._resolved_axes(), world,
-                                   keep=self.keep)
+                                   keep=self.keep, rank=rank)
                 else:
                     _ck._commit_full(self.ckpt_dir, pend.step, pend.tmp,
-                                     keep=self.keep)
+                                     keep=self.keep, rank=rank)
                 append_event(
                     "ckpt_save", step=pend.step, rank=rank, world=world,
                     sharded=self.sharded, async_save=self.async_save,
@@ -355,11 +359,44 @@ def jax_opt_state_specs(o_tree, param_specs, p_tree):
         keys, leaves, _ = _ck._flatten(node)
         if keys == p_keys and [_shape_of(x) for x in leaves] == p_shapes:
             return param_specs
+        q8 = _q8_param_specs(node, p_keys, p_shapes, param_specs)
+        if q8 is not None:
+            return q8
         if _ck._is_namedtuple(node):
             return type(node)(*(conv(v) for v in node))
         return _ck._map_with_keys(node, lambda _, __: P())
 
     return conv(o_tree)
+
+
+def _q8_param_specs(node, p_keys, p_shapes, param_specs):
+    """The specs of a tree of ``adamw_8bit``'s int8 moments keyed like
+    the params (JAX ``opt_state_specs``' ``q8_param_shaped``): each
+    node's codes take its parameter's spec, its block scales and
+    midpoints ``P()``. ``None`` when ``node`` is not such a tree."""
+    from ..optim import Q8LogMoment, Q8Moment
+    from ..parallel.tensor import P
+    from ..utils import checkpoint as _ck
+    if not isinstance(node, dict):
+        return None
+    nodes = []
+
+    def visit(key, leaf):
+        nodes.append((key, leaf))
+        return leaf
+
+    def is_q8(x):
+        return isinstance(x, (Q8Moment, Q8LogMoment))
+
+    _ck._map_with_keys(node, visit, is_leaf=is_q8)
+    if ([k for k, _ in nodes] != p_keys or not all(is_q8(x) for _, x in nodes)
+            or [_shape_of(x.q) for _, x in nodes] != p_shapes):
+        return None
+    spec_of = {}
+    _ck._map_with_keys(param_specs, spec_of.__setitem__,
+                       is_leaf=lambda x: isinstance(x, P))
+    return _ck._map_with_keys(node, lambda key, x: type(x)(
+        spec_of[key], *[P()] * (len(x) - 1)), is_leaf=is_q8)
 
 
 def _jax_layout_specs(o_specs, model):
@@ -368,6 +405,7 @@ def _jax_layout_specs(o_specs, model):
     (each list as the JAX param tree, through ``convert
     .jax_param_slots``); a tree already in the JAX layout passes."""
     from ..convert import jax_param_slots
+    from ..optim import Q8LogMoment, Q8Moment
     from ..parallel.tensor import P
     from ..utils import checkpoint as _ck
     tree = jax_param_slots(model)
@@ -376,6 +414,9 @@ def _jax_layout_specs(o_specs, model):
     def conv(node):
         if isinstance(node, list) and len(node) == n and all(
                 isinstance(x, P) for x in node):
+            return _ck._map_with_keys(tree, lambda _, s: node[s.index])
+        if isinstance(node, list) and len(node) == n and all(
+                isinstance(x, (Q8Moment, Q8LogMoment)) for x in node):
             return _ck._map_with_keys(tree, lambda _, s: node[s.index])
         if _ck._is_namedtuple(node):
             return type(node)(*(conv(v) for v in node))

@@ -277,7 +277,11 @@ def write_shards(tmp_dir: str, rank: int,
                  plan: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
     """Write this rank's owned pieces and its fragment into ``tmp_dir``
     (after :func:`snapshot_owned`). Returns ``{"bytes", "shards",
-    "duration_s"}``. File IO and CRC only: safe on a background thread."""
+    "duration_s"}``. File IO and CRC only: safe on a background thread.
+    Fires the ``DPX_FAULT`` op ``ckpt`` first (``runtime/faults.py``)."""
+    from ..runtime import faults
+
+    faults.on_comm_op("ckpt", rank=rank)
     t0 = time.perf_counter()
     members: Dict[str, np.ndarray] = {}
     frag: Dict[str, Dict[str, int]] = {}
@@ -303,7 +307,8 @@ def commit(ckpt_dir: str, step: int, tmp_dir: str,
            plan: Dict[str, Dict[str, Any]],
            extra: Optional[Dict[str, Any]],
            axis_sizes: Dict[str, int], writer_world: int,
-           keep: Optional[int] = None) -> Tuple[str, Dict[str, Any]]:
+           keep: Optional[int] = None,
+           rank: int = 0) -> Tuple[str, Dict[str, Any]]:
     """Merge the fragments into the manifest, then the two-rename commit.
     Control thread, one rank, after every fragment is durable."""
     from ..utils import checkpoint as _ck
@@ -319,5 +324,6 @@ def commit(ckpt_dir: str, step: int, tmp_dir: str,
         json.dump(man, f)
         f.flush()
         os.fsync(f.fileno())
-    final = _ck._commit_full(ckpt_dir, step, tmp_dir, keep=keep)
+    final = _ck._commit_full(ckpt_dir, step, tmp_dir, keep=keep,
+                             rank=rank)
     return final, man

@@ -47,6 +47,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..runtime import faults
 from ..runtime.native import CommError, CommTimeout, HostComm
 from . import wire as _wire
 
@@ -139,6 +140,9 @@ class HierRing:
             // self.nh
 
     def _pre_op(self, op: str, n: int, bits: int) -> None:
+        # the fault hook first, where the phase starts, as
+        # HostComm._pre_op does (runtime/faults.py)
+        faults.on_comm_op(op, rank=self.comm.rank, comm=self)
         # sanitize the LOGICAL hier op on the parent group (every
         # global rank enters it) — the sub-group legs each carry their
         # own comm's sanitizer

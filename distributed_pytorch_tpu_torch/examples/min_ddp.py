@@ -40,6 +40,7 @@ from distributed_pytorch_tpu_torch.optim import adamw
 from distributed_pytorch_tpu_torch.parallel import make_train_step
 from distributed_pytorch_tpu_torch.parallel.data_parallel import \
     GRAD_REDUCE_MODES
+from distributed_pytorch_tpu_torch.runtime import faults
 
 
 def parse_args(argv=None):
@@ -143,6 +144,8 @@ def main_worker(rank, world_size, argv=None, quiet=False, history_path=None,
         if is_distributed:
             sampler.set_epoch(epoch)
         for it, (x, y) in enumerate(loader):
+            # the DPX_FAULT step hook (runtime/faults.py; a no-op unarmed)
+            faults.on_step(epoch * len(loader) + it, rank=dist.get_rank())
             x, y = x.to(device), y.to(device)
             out = step(model, opt_state, (x, y))
             opt_state = out.opt_state

@@ -27,8 +27,17 @@ gathered); ``--resume`` restores a format-2 checkpoint written at any
 world size into this run's layout, each rank reading only the shards
 that overlap what it holds.
 
-Not ported yet (raises, naming its ROADMAP.md item): ``--elastic``
-(Queue A item 6).
+``--elastic N`` (with ``--save``) runs the whole command in a
+supervised child process (``runtime/elastic.py``) and relaunches it up
+to N times when it dies, appending ``--resume`` once the save directory
+holds a checkpoint of either format, so the relaunch continues exactly.
+A fault can be injected with ``DPX_FAULT`` (``runtime/faults.py``),
+e.g. ``DPX_FAULT=kill@op=ckpt_commit_window,call=2,attempt=0``. Under
+``--elastic`` or with ``DPX_METRICS_LOG`` set, the primary ends with a
+``metrics_snapshot`` (source ``train_end``) whose gauges hold the step
+it started from (``train.start_step``), the wall time its first step
+finished (``train.first_step_wall``, for which that step is waited
+for) and each flash kernel's launches (``kernels.<name>.launches``).
 
 Run (one rank per visible card; ``--device cpu`` on the CPU)::
 
@@ -54,16 +63,21 @@ from distributed_pytorch_tpu_torch.data import (DataLoader, SyntheticLM,
 from distributed_pytorch_tpu_torch.examples.min_ddp import rank_device
 from distributed_pytorch_tpu_torch.models import TransformerLM
 from distributed_pytorch_tpu_torch.models.generate import make_generate_fn
+from distributed_pytorch_tpu_torch.obs import metrics as dpxmon
+from distributed_pytorch_tpu_torch.obs.trace import wall_now
+from distributed_pytorch_tpu_torch.ops import flash_attention
 from distributed_pytorch_tpu_torch.ops.flash_attention import \
     make_flash_attn_fn
 from distributed_pytorch_tpu_torch.ops.losses import (
     cross_entropy_per_example, fused_linear_cross_entropy)
 from distributed_pytorch_tpu_torch.parallel import (fsdp, make_eval_step,
                                                     make_train_step)
-from distributed_pytorch_tpu_torch.runtime import context
+from distributed_pytorch_tpu_torch.runtime import context, elastic
+from distributed_pytorch_tpu_torch.runtime import env as _env
 from distributed_pytorch_tpu_torch.runtime.context import map_tensors
 from distributed_pytorch_tpu_torch.runtime.device import default_generator
 from distributed_pytorch_tpu_torch.utils import MetricsLogger, profiler
+from distributed_pytorch_tpu_torch.utils.checkpoint import latest_step
 
 
 def parse_args(argv=None):
@@ -140,20 +154,14 @@ def parse_args(argv=None):
                    help="Restore the latest checkpoint from --save and "
                         "continue exactly.")
     p.add_argument("--elastic", default=0, type=int, metavar="N",
-                   help="Relaunch up to N times on failure (not ported "
-                        "yet).")
+                   help="Relaunch up to N times on failure, resuming "
+                        "from --save (which it requires).")
     p.add_argument("--device", default=None, choices=("cuda", "cpu"),
                    help="Run on the CPU, or on the card (default).")
     p.add_argument("--nprocs", default=None, type=int,
                    help="Ranks to start (default: one per visible card, "
                         "through launch).")
     return p.parse_args(argv)
-
-
-def _unported(args) -> None:
-    if args.elastic:
-        raise NotImplementedError(
-            "--elastic is not ported yet (ROADMAP.md Queue A item 6)")
 
 
 class Subset:
@@ -256,7 +264,6 @@ def main_worker(rank, world_size, argv=None, quiet=False, history=None,
     if is_distributed:
         dist.init_process_group(rank, world_size)
     args = parse_args(argv)
-    _unported(args)
     if not quiet:
         for name, val in vars(args).items():
             dist.print_primary("{:<12}: {}".format(name, val))
@@ -423,6 +430,10 @@ def main_worker(rank, world_size, argv=None, quiet=False, history=None,
     data_s, data_batches = 0.0, 0
     worker_s, worker_batches = 0.0, 0
     save_s: List[float] = []
+    # the run's end as one metrics snapshot, for a supervisor reading its
+    # elastic child or a monitor reading DPX_METRICS_LOG
+    report_end = elastic.is_elastic() or _env.is_set("DPX_METRICS_LOG")
+    first_step_wall = None
     while step < args.steps:
         loader.set_epoch(epoch)
         if args.prefetch > 0:
@@ -444,6 +455,9 @@ def main_worker(rank, world_size, argv=None, quiet=False, history=None,
                 out = step_fn(model, opt_state, batch)
                 opt_state = out.opt_state
                 pending.append((step, out.loss))
+                if report_end and first_step_wall is None:
+                    profiler.block_until_ready(out.loss)
+                    first_step_wall = wall_now()
                 if trace_t0 is not None and (step >= 10
                                              or step == args.steps - 1):
                     profiler.block_until_ready(out.loss)
@@ -534,6 +548,17 @@ def main_worker(rank, world_size, argv=None, quiet=False, history=None,
             else:
                 dist.print_primary("generated tokens:", toks.tolist())
 
+    if report_end:
+        dpxmon.set_gauge("train.start_step", start_step)
+        dpxmon.set_gauge("train.end_step", step)
+        if first_step_wall is not None:
+            dpxmon.set_gauge("train.first_step_wall", first_step_wall)
+        dpxmon.set_gauge("train.eval_batches",
+                         record.get("eval_batches", 0))
+        for name, n in flash_attention.LAUNCHES.items():
+            dpxmon.set_gauge(f"kernels.{name}.launches", n)
+        if dist.is_primary():
+            dpxmon.emit_snapshot(step=step - 1, source="train_end")
     if out_dir is not None:
         torch.save(record, os.path.join(out_dir, f"rank{rank}.pt"))
     logger.close()
@@ -541,10 +566,7 @@ def main_worker(rank, world_size, argv=None, quiet=False, history=None,
     return record
 
 
-def main(argv=None) -> None:
-    argv = sys.argv[1:] if argv is None else argv
-    args = parse_args(argv)
-    _unported(args)
+def _run(argv, args) -> None:
     if args.nprocs is not None:
         dist.launch_multiprocess(main_worker, args.nprocs, argv,
                                  device=args.device)
@@ -552,6 +574,32 @@ def main(argv=None) -> None:
         main_worker(0, 0, argv)
     else:
         dist.launch(main_worker, argv)
+
+
+def _elastic_entry(argv) -> None:
+    """The elastic child: the run itself, resuming whenever the save
+    directory already holds a checkpoint (the relaunch after a crash
+    must neither start from step 0 nor need ``--resume`` typed)."""
+    argv = list(argv)
+    args = parse_args(argv)
+    if latest_step(args.save) is not None and "--resume" not in argv:
+        argv.append("--resume")
+        args = parse_args(argv)
+    _run(argv, args)
+
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    if not args.elastic:
+        _run(argv, args)
+        return
+    if not args.save:
+        raise SystemExit("--elastic requires --save DIR")
+    res = elastic.elastic_run(_elastic_entry, (argv,),
+                              max_restarts=args.elastic)
+    if res.restarts:
+        print(f"finished after {res.restarts} relaunch(es)")
 
 
 if __name__ == "__main__":

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..optim import mark_jax_perm
+
 from ..runtime import context
 
 
@@ -41,12 +43,19 @@ class Conv2d(nn.Module):
         std = math.sqrt(2.0 / (kernel * kernel * out_ch))
         w = torch.empty(out_ch, in_ch // groups, kernel, kernel, dtype=dtype,
                         device=device)
-        self.weight = nn.Parameter(w.normal_(0.0, std, generator=generator))
+        # OIHW here, HWIO in the JAX package
+        self.weight = mark_jax_perm(nn.Parameter(
+            w.normal_(0.0, std, generator=generator)), (2, 3, 1, 0))
         if bias:
             self.bias = nn.Parameter(torch.zeros(out_ch, dtype=dtype,
                                                  device=device))
         else:
             self.register_parameter("bias", None)
+
+    def __setstate__(self, state):
+        # a copy (copy.deepcopy, pickle) makes the weight anew, unmarked
+        super().__setstate__(state)
+        mark_jax_perm(self.weight, (2, 3, 1, 0))
 
     def forward(self, x):
         return F.conv2d(x, self.weight, self.bias, self.stride, self.padding,

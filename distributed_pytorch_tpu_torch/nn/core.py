@@ -10,7 +10,9 @@ two give different numbers from one seed and the tests load JAX
 weights through ``convert.from_jax_params`` instead.
 
 Layout: ``Linear.weight`` is (out, in), PyTorch's habit, where the JAX
-package stores W as (in, out); ``convert.py`` transposes.
+package stores W as (in, out); ``convert.py`` transposes, and the weight
+carries that transpose as its ``optim.jax_perm`` (``adamw_8bit`` blocks
+its moments in the JAX layout).
 
 ``ops.quant.quantize_tree`` may replace a ``Linear`` / ``Embedding``
 weight with int8 buffers (``weight`` is then None); both layers read
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.quant import resolve_weight
+from ..optim import mark_jax_perm
 
 
 class Linear(nn.Module):
@@ -40,14 +43,20 @@ class Linear(nn.Module):
         self.out_dim = out_dim
         bound = 1.0 / math.sqrt(in_dim)
         w = torch.empty(out_dim, in_dim, dtype=dtype, device=device)
-        self.weight = nn.Parameter(w.uniform_(-bound, bound,
-                                              generator=generator))
+        self.weight = mark_jax_perm(nn.Parameter(
+            w.uniform_(-bound, bound, generator=generator)), (1, 0))
         if bias:
             b = torch.empty(out_dim, dtype=dtype, device=device)
             self.bias = nn.Parameter(b.uniform_(-bound, bound,
                                                 generator=generator))
         else:
             self.register_parameter("bias", None)
+
+    def __setstate__(self, state):
+        # a copy (copy.deepcopy, pickle) makes the weight anew, unmarked
+        super().__setstate__(state)
+        if self.weight is not None:
+            mark_jax_perm(self.weight, (1, 0))
 
     def forward(self, x):
         return F.linear(x, resolve_weight(self), self.bias)

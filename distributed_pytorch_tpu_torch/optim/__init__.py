@@ -24,7 +24,7 @@ on the local shard alone, and a statistic over the whole parameter
 ``with_clipping``) is the global one, as the JAX package's global-view
 math gives. ``adamw_8bit``'s int8 codes follow the parameter's
 placement and its per-block scales are replicated, each block's the
-one of the whole flattened parameter.
+one of the whole parameter flattened in its JAX layout.
 """
 
 from __future__ import annotations
@@ -256,15 +256,82 @@ _Q8_BLOCK = 256      # elements per int8 block, one float32 scale each
 _Q8_VFLOOR = 1e-12   # log-domain floor of the second moment
 
 
+JAX_PERM = "_dpx_jax_perm"   # a parameter's permutation to its JAX layout
+
+
 class Q8Moment(NamedTuple):
     q: torch.Tensor      # param-shaped int8 codes
     scale: torch.Tensor  # (ceil(size / block),) float32 block scales
+    perm = None          # the blocks' order: see _q8_type
 
 
 class Q8LogMoment(NamedTuple):
     q: torch.Tensor      # param-shaped int8 codes, affine in log(v)
     scale: torch.Tensor  # per-block float32 code width
     mid: torch.Tensor    # per-block float32 midpoint
+    perm = None
+
+
+_Q8_TYPES = {}
+
+
+def _q8_type(base, perm):
+    """``base`` (``Q8Moment`` or ``Q8LogMoment``) whose blocks run over
+    the parameter permuted by ``perm`` (its JAX layout: a Linear W's
+    (in, out), a conv kernel's HWIO), so that codes and scales mean what
+    the JAX package's do. The codes stay param-shaped; the fields are
+    ``base``'s, and ``perm`` rides on the type through every
+    ``type(node)(...)`` that lays out, restores or updates the state.
+    ``None`` is ``base``: the parameter's own order."""
+    if perm is None:
+        return base
+    key = (base, tuple(perm))
+    if key not in _Q8_TYPES:
+        name = f"{base.__name__}_{'_'.join(map(str, perm))}"
+        _Q8_TYPES[key] = type(name, (base,), {
+            "__slots__": (), "perm": key[1], "__module__": __name__,
+            "__reduce__": lambda self: (_q8_node, (base, key[1],
+                                                   tuple(self)))})
+    return _Q8_TYPES[key]
+
+
+def _q8_node(base, perm, fields):
+    """Unpickle a node of :func:`_q8_type` (its type is made anew)."""
+    return _q8_type(base, perm)(*fields)
+
+
+def q8_base(node):
+    """The plain node type (``Q8Moment`` or ``Q8LogMoment``, the JAX
+    package's fields) of an ``adamw_8bit`` moment node of any order."""
+    return Q8LogMoment if isinstance(node, Q8LogMoment) else Q8Moment
+
+
+def jax_perm(p: torch.Tensor):
+    """The permutation that takes parameter ``p`` to its JAX layout
+    (``None``: the same layout), as its module marked it."""
+    return getattr(p, JAX_PERM, None)
+
+
+def mark_jax_perm(t: torch.Tensor, perm) -> torch.Tensor:
+    """Mark ``t`` as a parameter whose JAX layout is ``t.permute(perm)``
+    (nothing for ``None``); returns ``t``. The mark is a Python
+    attribute: a tensor made anew from a parameter (a copy, a DTensor, a
+    stack) takes it over with this call."""
+    if perm is not None:
+        setattr(t, JAX_PERM, tuple(perm))
+    return t
+
+
+def _inverse(perm):
+    return tuple(int(i) for i in np.argsort(perm))
+
+
+def _to_order(x: torch.Tensor, perm):
+    return x if perm is None else x.permute(perm)
+
+
+def _from_order(x: torch.Tensor, perm):
+    return x if perm is None else x.permute(_inverse(perm)).contiguous()
 
 
 class AdamW8bitState(NamedTuple):
@@ -285,70 +352,91 @@ def _blocks(flat: torch.Tensor, block: int, mode: str = "constant"):
     return flat.reshape(-1, block)
 
 
-def _q8_quant(x: torch.Tensor, block: int = _Q8_BLOCK) -> Q8Moment:
+def _q8_quant(x: torch.Tensor, block: int = _Q8_BLOCK,
+              perm=None) -> Q8Moment:
     """Blockwise symmetric int8 codes of a float32 tensor: per-block
-    amax / 127 scales, round half to even."""
-    blocks = _blocks(x.reshape(-1), block)
+    amax / 127 scales, round half to even; the blocks run over ``x``
+    permuted by ``perm``."""
+    xj = _to_order(x, perm)
+    blocks = _blocks(xj.reshape(-1), block)
     amax = blocks.abs().amax(dim=1)
     scale = torch.where(amax == 0.0, torch.ones_like(amax), amax / 127.0)
     q = torch.round(blocks / scale[:, None]).to(torch.int8)
-    return Q8Moment(q=q.reshape(-1)[:x.numel()].reshape(x.shape),
-                    scale=scale)
+    q = q.reshape(-1)[:x.numel()].reshape(xj.shape)
+    return _q8_type(Q8Moment, perm)(q=_from_order(q, perm), scale=scale)
 
 
 def _q8_dequant(qm: Q8Moment, shape, block: int = _Q8_BLOCK):
-    blocks = _blocks(qm.q.reshape(-1).to(torch.float32), block)
+    qj = _to_order(qm.q, qm.perm)
+    blocks = _blocks(qj.reshape(-1).to(torch.float32), block)
     n = qm.q.numel()
-    return (blocks * qm.scale[:, None]).reshape(-1)[:n].reshape(shape)
+    y = (blocks * qm.scale[:, None]).reshape(-1)[:n].reshape(qj.shape)
+    return _from_order(y, qm.perm).reshape(shape)
 
 
-def _q8_quant_log(v: torch.Tensor, block: int = _Q8_BLOCK) -> Q8LogMoment:
+def _q8_quant_log(v: torch.Tensor, block: int = _Q8_BLOCK,
+                  perm=None) -> Q8LogMoment:
     """Blockwise affine int8 codes of a non-negative tensor in the log
     domain: a code error is a relative error of v, and small entries
     keep a floor (``_Q8_VFLOOR``) instead of rounding to zero, which
     would blow up Adam's sqrt(v) + eps step. The last block is padded
-    with its last value: a pad of 0 (v = 1) would widen its range."""
-    blocks = _blocks(torch.log(v.reshape(-1) + _Q8_VFLOOR), block,
+    with its last value: a pad of 0 (v = 1) would widen its range. The
+    blocks run over ``v`` permuted by ``perm``."""
+    vj = _to_order(v, perm)
+    blocks = _blocks(torch.log(vj.reshape(-1) + _Q8_VFLOOR), block,
                      mode="replicate")
     lo, hi = blocks.amin(dim=1), blocks.amax(dim=1)
     scale = torch.where(hi > lo, (hi - lo) / 254.0, torch.ones_like(hi))
     mid = (hi + lo) / 2.0
     q = torch.round((blocks - mid[:, None]) / scale[:, None]).to(torch.int8)
-    return Q8LogMoment(q=q.reshape(-1)[:v.numel()].reshape(v.shape),
-                       scale=scale, mid=mid)
+    q = q.reshape(-1)[:v.numel()].reshape(vj.shape)
+    return _q8_type(Q8LogMoment, perm)(q=_from_order(q, perm), scale=scale,
+                                       mid=mid)
 
 
 def _q8_dequant_log(qm: Q8LogMoment, shape, block: int = _Q8_BLOCK):
-    blocks = _blocks(qm.q.reshape(-1).to(torch.float32), block)
+    qj = _to_order(qm.q, qm.perm)
+    blocks = _blocks(qj.reshape(-1).to(torch.float32), block)
     y = torch.exp(blocks * qm.scale[:, None] + qm.mid[:, None])
     n = qm.q.numel()
-    return (y.reshape(-1)[:n] - _Q8_VFLOOR).clamp(min=0.0).reshape(shape)
+    y = (y.reshape(-1)[:n] - _Q8_VFLOOR).clamp(min=0.0).reshape(qj.shape)
+    return _from_order(y, qm.perm).reshape(shape)
 
 
 class _ShardBlocks:
     """Where the elements of a DTensor's local shard fall among the
-    ``block``-element blocks of the whole flattened tensor.
+    ``block``-element blocks of the whole tensor flattened in the order
+    ``perm`` gives (its JAX layout; ``None``: its own).
 
-    A shard whose elements are one contiguous run of the whole tensor's
-    flat order (every ``Shard(0)`` layout, any layout over one rank) is
-    kept as ``(start, n)``: its blocks are a contiguous range, reduced and
-    expanded by a reshape, as the replicated quantizer does. Any other
-    layout (a ``Shard(1)`` column shard, FSDP2's ``_StridedShard`` over a
-    tensor-parallel dimension) keeps each local element's block id, from
-    the shard's offset in every dimension or, for a strided layout, from
-    the whole index tensor laid out as ``x``."""
+    A shard whose elements are one contiguous run of that flat order
+    (in the tensor's own order, every ``Shard(0)`` layout and any layout
+    over one rank) is kept as ``(start, n)``: its blocks are a
+    contiguous range, reduced and expanded by a reshape, as the
+    replicated quantizer does. Any other layout (a ``Shard(1)`` column
+    shard, FSDP2's ``_StridedShard`` over a tensor-parallel dimension, a
+    permuted order) keeps each local element's block id, from the
+    shard's offset in every dimension or, for a strided layout, from the
+    whole index tensor laid out as ``x``."""
 
-    def __init__(self, x: DTensor, block: int):
+    def __init__(self, x: DTensor, block: int, perm=None):
         from torch.distributed.tensor import Shard
         from torch.distributed.tensor._utils import \
             compute_local_shape_and_global_offset
-        self.x, self.block = x, block
+        self.x, self.block, self.perm = x, block, perm
         self.n_blocks = -(-x.numel() // block)
         local = x.to_local()
         self.span = self.ids = None
         mesh, pls = x.device_mesh, tuple(x.placements)
+        # each element's flat index in that order: strides of x's
+        # dimensions in a contiguous tensor of the permuted shape
+        meta = torch.empty(x.shape, device="meta")
+        strides = (meta.stride() if perm is None else
+                   torch.empty(meta.permute(perm).shape, device="meta")
+                   .permute(_inverse(perm)).stride())
         if not all(type(pl) in (Shard, Replicate) for pl in pls):
-            whole = torch.arange(x.numel(), device=local.device).view(x.shape)
+            whole = torch.as_strided(
+                torch.arange(x.numel(), device=local.device), x.shape,
+                strides).contiguous()
             self.ids = DTensor.from_local(
                 whole, mesh, [Replicate()] * mesh.ndim,
                 run_check=False).redistribute(mesh, pls).to_local() \
@@ -356,9 +444,9 @@ class _ShardBlocks:
             return
         shape, offset = compute_local_shape_and_global_offset(
             x.shape, mesh, pls)
-        strides = torch.empty(x.shape, device="meta").stride()
         part = [d for d in range(x.dim()) if shape[d] != x.shape[d]]
-        if not part or all(shape[d] == 1 for d in range(part[-1])):
+        if perm is None and (
+                not part or all(shape[d] == 1 for d in range(part[-1]))):
             self.span = (sum(o * st for o, st in zip(offset, strides)),
                          local.numel())
             return
@@ -439,7 +527,8 @@ def _q8_quant_sharded(x: DTensor, blocks: _ShardBlocks) -> Q8Moment:
     amax = blocks.block_max(flat.abs()[None], 0.0)[0]
     scale = torch.where(amax == 0.0, torch.ones_like(amax), amax / 127.0)
     q = torch.round(flat / blocks.take(scale)).to(torch.int8)
-    return Q8Moment(q=_local_like(q, x), scale=_replicated(scale, x))
+    return _q8_type(Q8Moment, blocks.perm)(q=_local_like(q, x),
+                                           scale=_replicated(scale, x))
 
 
 def _q8_quant_log_sharded(v: DTensor, blocks: _ShardBlocks) -> Q8LogMoment:
@@ -453,8 +542,9 @@ def _q8_quant_log_sharded(v: DTensor, blocks: _ShardBlocks) -> Q8LogMoment:
     mid = (hi + lo) / 2.0
     q = torch.round((logv - blocks.take(mid))
                     / blocks.take(scale)).to(torch.int8)
-    return Q8LogMoment(q=_local_like(q, v), scale=_replicated(scale, v),
-                       mid=_replicated(mid, v))
+    return _q8_type(Q8LogMoment, blocks.perm)(
+        q=_local_like(q, v), scale=_replicated(scale, v),
+        mid=_replicated(mid, v))
 
 
 def _q8_dequant_sharded(qm: Q8Moment, blocks: _ShardBlocks) -> torch.Tensor:
@@ -480,25 +570,32 @@ def adamw_8bit(lr: float, b1: float = 0.9, b2: float = 0.999,
     float32 AdamW arithmetic and requantizes, so the trajectory tracks
     :func:`adamw` closely but not exactly.
 
+    The blocks run over each parameter in its JAX layout (a Linear W's
+    (in, out), a conv kernel's HWIO: the permutation its module marks,
+    :func:`jax_perm`), so that codes and scales mean what the JAX
+    package's do and a checkpoint moves between the packages; the
+    codes stay param-shaped, and the state's node types carry the
+    order (``_q8_type``) from ``init`` on.
+
     On a DTensor (sharded) parameter the codes are a DTensor laid out as
     the parameter and the scales (and the log moment's midpoints) a
     replicated one, as the JAX package's ``opt_state_specs`` places
-    them; the blocks stay those of the whole flattened parameter. Each
-    rank quantizes its own elements, with each block's amax (min and
-    max) reduced over the shards, so codes, scales and the update equal
-    the replicated step's bit for bit on the same gradients."""
+    them; the blocks stay those of the whole parameter. Each rank
+    quantizes its own elements, with each block's amax (min and max)
+    reduced over the shards, so codes, scales and the update equal the
+    replicated step's bit for bit on the same gradients."""
 
     def init(params):
         mu, nu = [], []
         for p in params:
-            z = _zeros_f32(p)
+            z, perm = _zeros_f32(p), jax_perm(p)
             if isinstance(p, DTensor):
-                blocks = _ShardBlocks(p, _Q8_BLOCK)
+                blocks = _ShardBlocks(p, _Q8_BLOCK, perm)
                 mu.append(_q8_quant_sharded(z, blocks))
                 nu.append(_q8_quant_log_sharded(z, blocks))
             else:
-                mu.append(_q8_quant(z))
-                nu.append(_q8_quant_log(z))
+                mu.append(_q8_quant(z, perm=perm))
+                nu.append(_q8_quant_log(z, perm=perm))
         return AdamW8bitState(step=0, mu=mu, nu=nu)
 
     @torch.no_grad()
@@ -515,7 +612,7 @@ def adamw_8bit(lr: float, b1: float = 0.9, b2: float = 0.999,
             if g is None:
                 continue
             if isinstance(p, DTensor):
-                blocks = _ShardBlocks(p, _Q8_BLOCK)
+                blocks = _ShardBlocks(p, _Q8_BLOCK, mu[i].perm)
                 pl = p.to_local()
                 gf = _placed_like(g, p).to_local().reshape(-1).to(
                     torch.float32)
@@ -534,7 +631,8 @@ def adamw_8bit(lr: float, b1: float = 0.9, b2: float = 0.999,
             v = b2 * _q8_dequant_log(nu[i], p.shape) + (1 - b2) * gf * gf
             pf = p.to(torch.float32) * (1.0 - lr * weight_decay)
             p.copy_(pf - lr * (m / c1) / (torch.sqrt(v / c2) + eps))
-            mu[i], nu[i] = _q8_quant(m), _q8_quant_log(v)
+            mu[i] = _q8_quant(m, perm=mu[i].perm)
+            nu[i] = _q8_quant_log(v, perm=nu[i].perm)
         return AdamW8bitState(step=step, mu=mu, nu=nu)
 
     return Optimizer(init, update)
@@ -552,6 +650,6 @@ __all__ = ["AccumState", "AdafactorState", "AdamW8bitState", "AdamWState",
            "EmaState", "MasterState", "Optimizer", "Q8LogMoment", "Q8Moment",
            "ScheduledState", "accumulate", "adafactor", "adamw",
            "adamw_8bit", "clip_by_global_norm", "constant", "cosine_decay",
-           "ema_params", "global_norm", "linear_warmup", "schedules", "sgd",
-           "warmup_cosine", "with_clipping", "with_ema", "with_master_f32",
+           "ema_params", "global_norm", "jax_perm", "linear_warmup",
+           "mark_jax_perm", "q8_base", "schedules", "sgd", "warmup_cosine", "with_clipping", "with_ema", "with_master_f32",
            "with_schedule"]

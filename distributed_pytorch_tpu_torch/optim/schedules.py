@@ -23,7 +23,8 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
-from . import Optimizer, _foreach_copy, _with_grads, _zeros_f32
+from . import (Optimizer, _foreach_copy, _with_grads, _zeros_f32, jax_perm,
+               mark_jax_perm)
 
 Schedule = Callable[[int], float]
 
@@ -277,7 +278,8 @@ def with_master_f32(opt: Optimizer) -> Optimizer:
     lose every update below ~2^-8 of the weight to rounding."""
 
     def init(params):
-        master = [p.detach().to(torch.float32, copy=True) for p in params]
+        master = [mark_jax_perm(p.detach().to(torch.float32, copy=True),
+                                jax_perm(p)) for p in params]
         return MasterState(master=master, inner=opt.init(master))
 
     @torch.no_grad()

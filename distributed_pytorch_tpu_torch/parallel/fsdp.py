@@ -50,7 +50,7 @@ from torch import nn
 
 from ..comm import primitives as prim
 from ..convert import spec_placements
-from ..optim import Optimizer, Q8LogMoment, Q8Moment
+from ..optim import Optimizer, Q8LogMoment, Q8Moment, q8_base
 from ..runtime import env as _env
 from ..runtime.context import DATA_AXIS
 from .data_parallel import (MP_POLICIES, _average_grads, forward_backward,
@@ -119,7 +119,7 @@ def opt_state_specs(opt_state, param_specs, params):
         if _per_param_list(node, n):
             if all(isinstance(x, (Q8Moment, Q8LogMoment)) for x in node) \
                     and shaped(node, "q"):
-                return [type(x)(specs[i], *[P()] * (len(x) - 1))
+                return [q8_base(x)(specs[i], *[P()] * (len(x) - 1))
                         for i, x in enumerate(node)]
             if all(isinstance(x, torch.Tensor) for x in node) \
                     and shaped(node):

@@ -44,6 +44,7 @@ import torch
 from torch import nn
 
 from ..comm import primitives as prim
+from ..optim import jax_perm, mark_jax_perm
 
 
 def _stage_axis(mesh, axis_name: str):
@@ -310,9 +311,11 @@ def stack_layer_params(blocks) -> nn.Module:
             if p is None:
                 continue
             full = f"{mod_name}.{name}" if mod_name else name
-            mod._parameters[name] = nn.Parameter(
+            perm = jax_perm(per_block[0][full])   # a Linear W's, lead 1
+            mod._parameters[name] = mark_jax_perm(nn.Parameter(
                 torch.stack([pb[full].detach() for pb in per_block]),
-                requires_grad=p.requires_grad)
+                requires_grad=p.requires_grad),
+                None if perm is None else (0,) + tuple(d + 1 for d in perm))
     stack.n_stacked = len(blocks)
     return stack
 

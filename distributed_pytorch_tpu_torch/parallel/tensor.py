@@ -48,6 +48,7 @@ from ..convert import jax_param_slots, spec_placements
 from ..models.transformer import apply_remat_policy
 from ..nn.core import gelu
 from ..ops.quant import is_quantized
+from ..optim import jax_perm, mark_jax_perm
 
 
 class P(tuple):
@@ -220,10 +221,10 @@ def _place(model: nn.Module, specs, mesh, sub) -> nn.Module:
     placed = {}
     for (slot, spec), p in zip(specs_by_param(model, specs),
                                model.parameters()):
-        placed[id(p)] = nn.Parameter(
+        placed[id(p)] = mark_jax_perm(nn.Parameter(
             distribute_tensor(p.detach(), sub,
                               layout_placements(spec, slot, mesh, sub)),
-            requires_grad=p.requires_grad)
+            requires_grad=p.requires_grad), jax_perm(p))
     for mod in model.modules():
         for name, p in list(mod._parameters.items()):
             if p is not None and id(p) in placed:

@@ -13,9 +13,11 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Iterable, Mapping, Optional
 
-__all__ = ["EnvVar", "REGISTRY", "register", "get", "set"]
+__all__ = ["EnvVar", "REGISTRY", "apply_overrides", "environ_copy", "get",
+           "is_set", "raw", "register", "restore", "set", "snapshot",
+           "unset"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,12 +59,7 @@ def register(name: str, type: str = "str", default: Any = None,
 def get(name: str) -> Any:
     """Typed value of ``name``: parsed when set, the declared default when
     unset or malformed."""
-    try:
-        var = REGISTRY[name]
-    except KeyError:
-        raise KeyError(
-            f"environment variable {name!r} is not registered in the "
-            f"port's runtime/env.py") from None
+    var = _lookup(name)
     text = os.environ.get(name)
     if text is None:
         return var.default
@@ -72,13 +69,63 @@ def get(name: str) -> Any:
         return var.default
 
 
+def _lookup(name: str) -> EnvVar:
+    try:
+        return REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"environment variable {name!r} is not registered "
+                       f"in the port's runtime/env.py") from None
+
+
+def raw(name: str) -> Optional[str]:
+    """The unparsed value (None when unset), for a variable whose
+    grammar is richer than one scalar (``DPX_FAULT``, ``DPX_CHAOS``)."""
+    _lookup(name)
+    return os.environ.get(name)
+
+
+def is_set(name: str) -> bool:
+    _lookup(name)
+    return name in os.environ
+
+
 def set(name: str, value: Any) -> None:
     """Export a registered variable (stringified) to this process and
     the processes it starts; an unregistered name raises ``KeyError``."""
-    if name not in REGISTRY:
-        raise KeyError(f"environment variable {name!r} is not registered "
-                       f"in the port's runtime/env.py")
+    _lookup(name)
     os.environ[name] = str(value)
+
+
+def unset(name: str) -> None:
+    _lookup(name)
+    os.environ.pop(name, None)
+
+
+def apply_overrides(mapping: Mapping[str, str]) -> None:
+    """Apply a caller's environment dict as it is (a child process's
+    bootstrap: the elastic child's, a rank's). Its keys need not be
+    registered: such dicts carry the caller's own variables too."""
+    os.environ.update({k: str(v) for k, v in mapping.items()})
+
+
+def snapshot(keys: Iterable[str]) -> Dict[str, Optional[str]]:
+    """The raw values of ``keys`` (None = unset), for :func:`restore`."""
+    return {k: os.environ.get(k) for k in keys}
+
+
+def environ_copy() -> Dict[str, str]:
+    """A copy of the whole environment, to build a child's from: a child
+    inherits variables the registry does not know as well."""
+    return dict(os.environ)
+
+
+def restore(saved: Mapping[str, Optional[str]]) -> None:
+    """Undo an :func:`apply_overrides` from a prior :func:`snapshot`."""
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
 
 
 # The JAX package's value (its measured TPU crossover). Not yet measured
@@ -304,11 +351,47 @@ register("DPX_WEIGHT_UPDATE", "str", "replicated",
          "`replicated` (every rank runs the full optimizer step) or "
          "`sharded` (ZeRO-1: reduce-scatter, a step on the owned 1/world "
          "slice, all-gather; optim/sharded/).")
+
+# -- faults, chaos and elastic restart (runtime/faults.py, chaos.py,
+# elastic.py, watchdog.py); the JAX package's names, types and defaults
+register("DPX_FAULT", "str", None,
+         "Deterministic fault-injection spec(s): "
+         "`action@key=value,...` with actions kill|delay|drop_conn|"
+         "diverge|flaky (grammar in runtime/faults.py).")
+register("DPX_CHAOS", "str", None,
+         "Declarative multi-fault chaos campaign: inline JSON, a path "
+         "to a JSON spec, or `;`-joined `[leg:expect:]fault` clauses "
+         "(grammar in runtime/chaos.py).")
 register("DPX_RETRY_MAX", "int", 2,
-         "Bounded retry budget of the host group's rendezvous: a failed "
-         "connect is re-entered up to this many times (total attempts = "
-         "1 + budget) before raising the typed CommRetryExhausted. "
-         "Collectives mid-flight never retry.")
+         "Bounded retry budget for transient comm faults: the host "
+         "group's rendezvous and the handoff-transport hooks retry up to "
+         "this many times (total attempts = 1 + budget) before raising "
+         "the typed CommRetryExhausted. Collectives mid-flight never "
+         "retry.")
 register("DPX_RETRY_BACKOFF_MS", "float", 25.0,
-         "Base backoff of the rendezvous retry: attempt k sleeps "
-         "base*2^(k-1) ms before re-entering.")
+         "Base backoff of the transient-fault retry: attempt k sleeps "
+         "base*2^(k-1) ms before re-entering; every retry emits a "
+         "comm_retry event.")
+register("DPX_CHAOS_WORLD", "int", 4,
+         "World size of a chaos campaign's train legs (the shrink-resume "
+         "leg relaunches at half this).")
+register("DPX_ELASTIC_ATTEMPT", "int", 0,
+         "Restart attempt number exported to elastically supervised "
+         "workers (0 = first launch).")
+register("DPX_ELASTIC", "bool", False,
+         "Set to 1 in workers supervised by `elastic_run`.")
+register("DPX_PLATFORM", "str", None,
+         "Device the elastic child defaults to: `cpu` makes the CPU the "
+         "child's default device (torch.set_default_device), anything "
+         "else leaves the card.")
+register("DPX_WORKER_TAG", "str", None,
+         "Per-launch tag `<launcher pid>-<us>` stamped on spawned rank "
+         "processes so `watchdog.kill_orphan_workers` can clean up after "
+         "a crashed launcher.")
+register("LOCAL_WORLD_SIZE", "int", None,
+         "Ranks per host (torchrun's variable): `runtime/multihost.py` "
+         "counts hosts as the world over it (unset: one rank per visible "
+         "card, one per CPU process under gloo).")
+register("DPX_ELASTIC_TEST_LEAK", "str", None,
+         "Test-only canary asserting the elastic child's environment "
+         "never leaks into the supervisor.")

@@ -20,7 +20,9 @@ goes on the queue (and to stderr), its group is torn down while the
 interpreter is still whole (a host group's links aborted, so its peers
 fail typed at once), the queue is flushed, and the process ends with
 ``os._exit(1)`` (a ``SystemExit`` keeps its code, and one of 0 or
-``None`` is a clean exit, with nothing queued). Re-raising instead
+``None`` is a clean exit, with nothing queued). Each rank carries the
+launch's tag in ``DPX_WORKER_TAG`` (``<launcher pid>-<us>``) for
+``watchdog.kill_orphan_workers``. Re-raising instead
 would leave the teardown of a live gloo group to interpreter
 finalization, which can abort the process (SIGABRT) in place of exit 1.
 """
@@ -30,6 +32,7 @@ from __future__ import annotations
 import multiprocessing as mp
 import os
 import sys
+import time
 import traceback
 from typing import Callable, Optional
 
@@ -38,7 +41,8 @@ import torch
 from . import context
 from . import env as _env
 from .launcher import find_free_port
-from .watchdog import ProcessSupervisor, WorkerFailure
+from .watchdog import (WORKER_TAG_ENV, ProcessSupervisor, WorkerFailure,
+                       register_active_tag, unregister_active_tag)
 
 
 def _failure_meta(exc: BaseException) -> Optional[dict]:
@@ -128,29 +132,45 @@ def launch_multiprocess(worker_fn: Callable, nprocs: int, *args,
                 "DPX_MASTER_PORT": (find_free_port(3 * nprocs + 2) if host
                                     else find_free_port()),
                 "DPX_BACKEND": "host" if host else ""}
+    # the launch's tag, in each rank's environment from its first
+    # instruction on: kill_orphan_workers finds the ranks of a launcher
+    # that died by it, and spares this launch while it lives
+    tag = f"{os.getpid()}-{int(time.time() * 1e6)}"
+    child_env = {WORKER_TAG_ENV: tag}
     ctx = mp.get_context("spawn")
     err_q = ctx.Queue()
     procs = []
+    register_active_tag(tag)
     try:
-        for rank in range(nprocs):
-            p = ctx.Process(target=_worker_shim,
-                            args=(rank, nprocs, rank_env, worker_fn, args,
-                                  err_q), daemon=False)
-            p.start()
-            procs.append(p)
-    except BaseException:
-        # ranks already started must not wait for peers that never came
-        ProcessSupervisor(procs, err_q).terminate_all()
-        raise
-    try:
-        ProcessSupervisor(procs, err_q).join(timeout_s)
-    except WorkerFailure as e:
-        from ..utils.logging import append_event
-        append_event("worker_failure", rank=e.rank, exitcode=e.exitcode,
-                     world=nprocs, op=e.op, kind=e.kind)
-        # flight recorder (obs/trace.py): spans this supervisor traced
-        # ship with the failure; a no-op when its ring is empty (each
-        # rank process ships its own from its typed error path)
-        from ..obs import trace as _dpxtrace
-        _dpxtrace.on_typed_failure(e)
-        raise
+        try:
+            for rank in range(nprocs):
+                saved = _env.snapshot(child_env)
+                try:
+                    _env.apply_overrides(child_env)
+                    p = ctx.Process(target=_worker_shim,
+                                    args=(rank, nprocs, rank_env, worker_fn,
+                                          args, err_q), daemon=False)
+                    p.start()
+                    procs.append(p)
+                finally:
+                    _env.restore(saved)
+        except BaseException:
+            # ranks already started must not wait for peers that never
+            # came
+            ProcessSupervisor(procs, err_q).terminate_all()
+            raise
+        try:
+            ProcessSupervisor(procs, err_q).join(timeout_s)
+        except WorkerFailure as e:
+            from ..utils.logging import append_event
+            append_event("worker_failure", rank=e.rank, exitcode=e.exitcode,
+                         world=nprocs, op=e.op, kind=e.kind)
+            # flight recorder (obs/trace.py): spans this supervisor
+            # traced ship with the failure; a no-op when its ring is
+            # empty (each rank process ships its own from its typed
+            # error path)
+            from ..obs import trace as _dpxtrace
+            _dpxtrace.on_typed_failure(e)
+            raise
+    finally:
+        unregister_active_tag(tag)

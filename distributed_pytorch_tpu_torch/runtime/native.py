@@ -30,12 +30,12 @@ import shutil
 import subprocess
 import socket
 import threading
-import time
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
+from . import chaos, faults
 from . import env as _env
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -177,28 +177,24 @@ def crc32c(buf) -> int:
 
 def _rendezvous(lib, addr: str, base_port: int, rank: int, world: int,
                 timeout_ms: int):
-    """``dpx_comm_init``, re-entered on a null handle: nothing is
-    established yet when the connect fails, so a retry is safe. Up to
-    ``DPX_RETRY_MAX`` retries, the k-th after ``DPX_RETRY_BACKOFF_MS *
-    2^(k-1)`` ms; then :class:`CommRetryExhausted`."""
-    retries = max(int(_env.get("DPX_RETRY_MAX")), 0)
-    backoff_ms = float(_env.get("DPX_RETRY_BACKOFF_MS"))
-    last = None
-    for attempt in range(retries + 1):
-        if attempt:
-            time.sleep(backoff_ms * 2 ** (attempt - 1) / 1e3)
+    """``dpx_comm_init`` inside ``chaos.call_with_retry``: nothing is
+    established yet when a connect fails, so a retry is safe. The
+    ``init`` fault hook fires before each attempt
+    (``flaky@op=init,rank=1,count=2`` refuses rank 1's connect twice).
+    Up to ``DPX_RETRY_MAX`` retries, the k-th after
+    ``DPX_RETRY_BACKOFF_MS * 2^(k-1)`` ms, each a ``comm_retry`` event;
+    then :class:`CommRetryExhausted`."""
+    def attempt():
+        faults.on_comm_op("init", rank=rank)
         handle = lib.dpx_comm_init(addr.encode(), base_port, rank, world,
                                    timeout_ms)
-        if handle:
-            return handle
-        last = CommError(f"native rendezvous failed (rank {rank}/{world} "
-                         f"on {addr}:{base_port})", op="init", rank=rank)
-    if retries == 0:
-        raise last
-    raise CommRetryExhausted(
-        f"init: rendezvous failed through {retries + 1} attempt(s) (retry "
-        f"budget {retries}): {last}", attempts=retries + 1, op="init",
-        rank=rank) from last
+        if not handle:
+            raise CommError(f"native rendezvous failed (rank {rank}/{world} "
+                            f"on {addr}:{base_port})", op="init", rank=rank)
+        return handle
+
+    return chaos.call_with_retry(attempt, op="init", rank=rank,
+                                 transient=(faults.FlakyFault, CommError))
 
 
 class HostComm:
@@ -213,10 +209,11 @@ class HostComm:
     Every op is a ``comm:<op>`` dpxtrace span (through
     ``CommStats.timed``), the comm stamps its rank on the spans and
     metrics snapshots of its process, and its ``stats`` are the dpxmon
-    ``comm`` provider. Not ported yet: the fault-injection hooks
-    (``faults.on_comm_op``) and the collective-schedule recorder
-    (``analysis/schedule.py``) of the JAX package's ``HostComm``, which
-    come with the fault layer and the analysis tools."""
+    ``comm`` provider. Every op fires ``faults.on_comm_op`` under its
+    op name first, and the comm is registered for ``drop_conn`` /
+    ``diverge`` (``runtime/faults.py``). The JAX package's
+    collective-schedule recorder (``analysis/schedule.py``) comes with
+    the analysis tools."""
 
     #: allreduce op codes (``dpxhost.cpp``'s enum)
     _OPS = {"sum": 0, "max": 1, "min": 2}
@@ -258,6 +255,7 @@ class HostComm:
         if _env.get("DPX_COMM_SANITIZE"):
             from ..comm.sanitizer import CollectiveSanitizer
             self._sanitizer = CollectiveSanitizer(self)
+        faults.register_comm(self)
 
     def close(self) -> None:
         ring, self._hier_ring = self._hier_ring, None
@@ -281,6 +279,9 @@ class HostComm:
             pass
 
     def _pre_op(self, op: str, *, dtype: str = "", size: int = 0) -> None:
+        # fault injection first: an injected extra barrier lands
+        # where the schedule diverges
+        faults.on_comm_op(op, rank=self.rank, comm=self)
         if self._h is None:
             raise CommError(f"{op} on a closed comm (rank {self.rank})",
                             op=op, rank=self.rank)

@@ -1,20 +1,51 @@
-"""Fail-fast supervision of rank processes.
+"""Failure detection for rank processes.
 
-Counterpart of ``distributed_pytorch_tpu/runtime/watchdog.py:39-214``
-(``WorkerFailure``, ``ProcessSupervisor``). The reference's failure story
-is manual: a crashed rank leaves its peers blocked in a collective until
-someone kills them by hand (reference ``README.md:121-125``). Here the
-first abnormal exit ends the run: the surviving ranks are terminated
-after a grace period and the parent raises :class:`WorkerFailure` with
-the failing rank's traceback. A join may also carry a deadline, after
-which every rank still running is terminated.
+Counterpart of ``distributed_pytorch_tpu/runtime/watchdog.py``. The
+reference's failure story is manual: a crashed rank leaves its peers
+blocked in a collective until someone kills them by hand, and its
+leftover workers are found with ``ps`` (reference
+``README.md:121-125``). Here:
+
+- :class:`ProcessSupervisor`: the first abnormal exit ends the run; the
+  surviving ranks are terminated after a grace period and the parent
+  raises :class:`WorkerFailure` with the failing rank's traceback. A
+  join may carry a deadline, after which every rank still running is
+  terminated.
+- :class:`Heartbeat` / :class:`HeartbeatMonitor`: each rank stamps a
+  file per step; the monitor names the ranks whose stamp went stale (a
+  wedged collective, a stalled host), which liveness alone cannot see.
+- :func:`kill_orphan_workers`: every rank carries its launch's tag in
+  ``DPX_WORKER_TAG``; the killer finds the tagged processes of launches
+  whose launcher is gone, through ``/proc``, and terminates them.
 """
 
 from __future__ import annotations
 
+import os
 import queue as _queue
+import signal
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
+
+WORKER_TAG_ENV = "DPX_WORKER_TAG"
+
+# Launch tags of the multiprocess runs in flight in this process
+# (registered by launch_multiprocess): kill_orphan_workers spares them by
+# default. A caller in another process passes ``tag`` / ``exclude_tag``.
+_ACTIVE_TAGS: set = set()
+
+
+def register_active_tag(tag: str) -> None:
+    _ACTIVE_TAGS.add(tag)
+
+
+def unregister_active_tag(tag: str) -> None:
+    _ACTIVE_TAGS.discard(tag)
+
+
+def active_tags() -> frozenset:
+    """Launch tags of the runs in flight that this process owns."""
+    return frozenset(_ACTIVE_TAGS)
 
 _POLL_S = 0.05
 # survivors of a failure report their own errors within this window (a
@@ -151,3 +182,182 @@ class ProcessSupervisor:
         raise WorkerFailure(
             f"worker process exited abnormally (exit code {code}); "
             "remaining workers were terminated", exitcode=code)
+
+
+# ---------------------------------------------------------------------------
+# progress heartbeats
+# ---------------------------------------------------------------------------
+
+
+class StalledWorker(RuntimeError):
+    """One or more ranks stopped emitting progress beacons."""
+
+
+class Heartbeat:
+    """Worker-side progress beacon: ``beat(step)`` atomically rewrites
+    ``<dir>/rank<r>.hb`` with ``<timestamp> <step>``. Call it once per
+    training step (cost: one tiny file rename)."""
+
+    def __init__(self, directory: str, rank: int):
+        os.makedirs(directory, exist_ok=True)
+        self.path = os.path.join(directory, f"rank{rank}.hb")
+        self._tmp = self.path + ".tmp"
+
+    def beat(self, step: int = 0) -> None:
+        with open(self._tmp, "w") as f:
+            f.write(f"{time.time()} {step}")
+        os.replace(self._tmp, self.path)
+
+
+class HeartbeatMonitor:
+    """Launcher-side staleness check over a heartbeat directory.
+
+    ``stalled(timeout_s)`` returns the ranks whose last beacon is older
+    than ``timeout_s`` (ranks that never beat are only counted once they
+    have had ``timeout_s`` since the monitor started, so slow-starting
+    workers aren't false positives). ``assert_alive`` raises
+    :class:`StalledWorker`."""
+
+    def __init__(self, directory: str, world_size: int):
+        self.directory = directory
+        self.world_size = world_size
+        self.start_time = time.time()
+
+    def last_beats(self) -> Dict[int, float]:
+        out = {}
+        for rank in range(self.world_size):
+            path = os.path.join(self.directory, f"rank{rank}.hb")
+            try:
+                with open(path) as f:
+                    out[rank] = float(f.read().split()[0])
+            except (OSError, ValueError, IndexError):
+                pass
+        return out
+
+    def stalled(self, timeout_s: float) -> List[int]:
+        now = time.time()
+        beats = self.last_beats()
+        out = []
+        for rank in range(self.world_size):
+            last = beats.get(rank, self.start_time)
+            # wall stamps written by other processes' beat(): their
+            # monotonic clocks do not align with this one
+            if now - last > timeout_s:
+                out.append(rank)
+        return out
+
+    def assert_alive(self, timeout_s: float) -> None:
+        bad = self.stalled(timeout_s)
+        if bad:
+            raise StalledWorker(
+                f"ranks {bad} have not emitted a heartbeat in {timeout_s}s")
+
+
+# ---------------------------------------------------------------------------
+# orphan cleanup
+# ---------------------------------------------------------------------------
+
+
+def _proc_environ(pid: int) -> Dict[str, str]:
+    try:
+        with open(f"/proc/{pid}/environ", "rb") as f:
+            raw = f.read()
+    except OSError:
+        return {}
+    env = {}
+    for entry in raw.split(b"\0"):
+        if b"=" in entry:
+            k, _, v = entry.partition(b"=")
+            env[k.decode(errors="replace")] = v.decode(errors="replace")
+    return env
+
+
+def _launcher_pid(tag: str) -> Optional[int]:
+    """Launch tags are ``<launcher_pid>-<microsecond timestamp>``
+    (runtime/multiprocess.py); recover the launcher pid, or None for a
+    foreign/unparseable tag."""
+    head, _, _ = tag.partition("-")
+    return int(head) if head.isdigit() else None
+
+
+def find_tagged_workers(tag: Optional[str] = None,
+                        exclude_tag: Optional[str] = None,
+                        exclude_active: bool = True,
+                        require_dead_launcher: bool = True) -> List[int]:
+    """PIDs of live ORPHANED processes carrying ``DPX_WORKER_TAG`` in
+    their environment — optionally only a specific ``tag``, always sparing
+    the tags of runs this process currently has in flight unless
+    ``exclude_active=False``. A worker only counts as orphaned when the
+    launcher pid encoded in its tag is no longer alive — otherwise a
+    cleanup call in one job would shoot down a concurrent job's live
+    workers (``_ACTIVE_TAGS`` is per-process and cannot see them). Pass
+    ``require_dead_launcher=False`` to force-match live runs too. Returns
+    ``[]`` on platforms without ``/proc``."""
+    excluded = set(_ACTIVE_TAGS) if exclude_active else set()
+    if exclude_tag is not None:
+        excluded.add(exclude_tag)
+    pids = []
+    me = os.getpid()
+    try:
+        entries = os.listdir("/proc")
+    except OSError:
+        return []
+    for entry in entries:
+        if not entry.isdigit() or int(entry) == me:
+            continue
+        env = _proc_environ(int(entry))
+        t = env.get(WORKER_TAG_ENV)
+        if t is None or t in excluded:
+            continue
+        if tag is not None and t != tag:
+            continue
+        if require_dead_launcher:
+            lp = _launcher_pid(t)
+            if lp is not None and lp != me and _alive(lp):
+                continue  # launcher still running: not an orphan
+        pids.append(int(entry))
+    return pids
+
+
+def kill_orphan_workers(tag: Optional[str] = None,
+                        exclude_tag: Optional[str] = None,
+                        exclude_active: bool = True,
+                        require_dead_launcher: bool = True,
+                        grace_s: float = 3.0) -> List[int]:
+    """Terminate leftover tagged worker processes (SIGTERM, then SIGKILL
+    after ``grace_s``). Returns the PIDs acted on. Runs launched by this
+    process that are still in flight are spared by default, and so are
+    workers whose launcher process (encoded in the tag) is still alive —
+    concurrent jobs in other processes are not orphans. Pass
+    ``require_dead_launcher=False`` to kill a live run by explicit tag.
+
+    The reference's manual recovery (find the orphaned spawn workers with
+    ``ps`` and kill them, ``README.md:121-125``) as one call."""
+    pids = find_tagged_workers(tag=tag, exclude_tag=exclude_tag,
+                               exclude_active=exclude_active,
+                               require_dead_launcher=require_dead_launcher)
+    for pid in pids:
+        try:
+            os.kill(pid, signal.SIGTERM)
+        except OSError:
+            pass
+    deadline = time.monotonic() + grace_s
+    while time.monotonic() < deadline:
+        if not any(_alive(pid) for pid in pids):
+            break
+        time.sleep(0.05)
+    for pid in pids:
+        if _alive(pid):
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+    return pids
+
+
+def _alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+        return True
+    except OSError:
+        return False

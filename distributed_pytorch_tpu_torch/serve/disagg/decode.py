@@ -21,8 +21,9 @@ Token 0 is sampled here from the frame's exact f32 logits with the
 request's generator, the draw ``generate()`` makes first, so an exact
 (f32) handoff streams ``generate()``'s tokens from token 0 on.
 
-Not ported yet: the fault-injection hooks of each iteration and of the
-speculative step (ROADMAP.md Queue A item 6).
+Fault hooks (``runtime/faults.py``): each iteration fires
+``on_serve_iteration``, the speculative step ``draft_propose`` and
+``spec_verify``, as the monolithic engine does.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from ...models.generate import _sample
+from ...runtime import faults
 from ..pages import PagedSlotPool
 from ..spec import SpecState, accept_greedy
 from ..types import (HandoffCorrupt, PagePoolExhausted, Request,
@@ -134,6 +136,7 @@ class DecodeEngine:
                 continue
             self.iterations += 1
             try:
+                faults.on_serve_iteration(self.iterations)
                 now = time.monotonic()
                 self._sweep_deadlines(now)
                 self.router.sweep_handoff_timeouts(now, self.iterations)
@@ -298,6 +301,7 @@ class DecodeEngine:
         spec = self._spec
         k = spec.cfg.draft_len
         try:
+            faults.on_comm_op("draft_propose")
             drafts = spec.propose(spec_slots, self._cur_tokens[spec_slots])
         except Exception as e:  # noqa: BLE001 — victim containment
             self._spec_fail(spec_slots, e, "propose")
@@ -306,6 +310,7 @@ class DecodeEngine:
         tokens[spec_slots, 0] = self._cur_tokens[spec_slots]
         tokens[spec_slots, 1:] = drafts
         try:
+            faults.on_comm_op("spec_verify")
             logits, sk, sv = self.pool.spec_verify(
                 torch.from_numpy(tokens).to(self.device))
             logits_np = logits[spec_slots].to(torch.float32).cpu().numpy()

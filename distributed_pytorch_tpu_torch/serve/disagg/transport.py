@@ -11,8 +11,11 @@ between the two loops' CUDA streams.
 :class:`HostCommTransport` is the frame pipe between two OS processes
 over a 2-rank native host group (``runtime/native.py`` ``HostComm``).
 
-Not ported yet: the fault-injection hooks of ``send`` / ``recv``
-(ROADMAP.md Queue A item 6).
+Both transports fire the fault ops ``handoff_send`` / ``handoff_recv``
+(``runtime/faults.py``), only when a fault is armed, inside
+``chaos.call_with_retry``: no byte is in flight at the hook, so a
+``flaky`` fault is retried with a ``comm_retry`` event per retry, and a
+``drop_conn`` severs this transport.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Optional
 
 import numpy as np
 
+from ...runtime import chaos as _chaos
+from ...runtime import faults
 from ...utils.profiler import CommStats
 
 
@@ -50,6 +55,10 @@ class LocalTransport:
     def send(self, frame: bytes, kv_bytes: int) -> None:
         """Enqueue one encoded frame, booking its KV wire bytes under
         ``handoff_send``."""
+        if faults.armed():
+            _chaos.call_with_retry(
+                lambda: faults.on_comm_op("handoff_send", comm=self),
+                op="handoff_send")
         if self._severed.is_set():
             raise TransportSevered("handoff transport severed")
         with self.stats.timed("handoff_send", kv_bytes):
@@ -69,6 +78,11 @@ class LocalTransport:
                 raise TransportSevered(
                     "handoff transport severed") from None
             return None
+        # the frame is already in hand: retrying the hook alone is safe
+        if faults.armed():
+            _chaos.call_with_retry(
+                lambda: faults.on_comm_op("handoff_recv", comm=self),
+                op="handoff_recv")
         self.frames_recv += 1
         return frame
 
@@ -123,6 +137,11 @@ class HostCommTransport:
         """Send one encoded frame (from rank ``src``), booking its KV
         wire bytes under ``handoff_send``."""
         from ...runtime.native import CommError
+        if faults.armed():
+            _chaos.call_with_retry(
+                lambda: faults.on_comm_op("handoff_send",
+                                          rank=self.comm.rank, comm=self),
+                op="handoff_send", rank=self.comm.rank)
         try:
             with self.stats.timed("handoff_send", kv_bytes):
                 self.comm.broadcast(np.array([len(frame)], np.int64),
@@ -137,6 +156,11 @@ class HostCommTransport:
         """Receive one frame, blocking (``timeout_s`` is accepted for
         the transport interface; the native deadline governs)."""
         from ...runtime.native import CommError, CommTimeout
+        if faults.armed():
+            _chaos.call_with_retry(
+                lambda: faults.on_comm_op("handoff_recv",
+                                          rank=self.comm.rank, comm=self),
+                op="handoff_recv", rank=self.comm.rank)
         hdr = np.zeros(1, np.int64)
         try:
             self.comm.broadcast(hdr, src=self.src)

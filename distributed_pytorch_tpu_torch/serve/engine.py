@@ -32,7 +32,10 @@ requests share the batch non-speculatively. ``submit(tenant=)`` counts
 a request against its tenant's inflight quota
 (``DPX_SERVE_TENANT_MAX_INFLIGHT``).
 
-Left for later slices: the fault-injection hooks and trace spans.
+Fault hooks (``runtime/faults.py``): each iteration fires
+``on_serve_iteration`` (``op=serve_step``, and the iteration as the
+step), speculation ``draft_propose`` and ``spec_verify``; a fault there
+fails only the speculating requests, as a typed ``SpecDecodeError``.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from ..models.generate import _check_attn_compatible, _model_window, _sample
 from ..obs import metrics as dpxmon
 from ..obs import trace as dpxtrace
 from ..runtime import env as _env
+from ..runtime import faults
 from ..runtime.device import default_generator
 from ..utils.logging import MetricsLogger
 from .cache import SlotPool
@@ -450,6 +454,7 @@ class InferenceEngine:
                         break
                 self._iteration += 1
                 try:
+                    faults.on_serve_iteration(self._iteration)
                     self._sweep_deadlines(time.monotonic())
                     self._admit_from_queue()
                     if self._running:
@@ -613,6 +618,7 @@ class InferenceEngine:
         k = spec.cfg.draft_len
         tracing = dpxtrace.enabled()
         try:
+            faults.on_comm_op("draft_propose")
             t0 = time.monotonic()
             drafts = spec.propose(spec_slots, self._cur_tokens[spec_slots])
             t1 = time.monotonic()
@@ -623,6 +629,7 @@ class InferenceEngine:
         tokens[spec_slots, 0] = self._cur_tokens[spec_slots]
         tokens[spec_slots, 1:] = drafts
         try:
+            faults.on_comm_op("spec_verify")
             t2 = time.monotonic()
             logits, sk, sv = self.pool.spec_verify(
                 torch.from_numpy(tokens).to(self.device))

@@ -32,8 +32,10 @@ registry's ``fleet`` provider, its routes, spills, rejections, failures,
 drains and scale events are ``fleet.*`` counters, and
 :meth:`emit_snapshot` writes one rank-attributed ``metrics_snapshot``
 naming the admitting replicas (``serve/fleet/autoscale.py`` scales on
-that). Not ported yet: the ``faults.on_comm_op(FLEET_OP)`` hook of
-``submit``, which comes with the fault layer.
+that). ``submit`` fires the fault op ``fleet_submit`` with the
+request's home replica as the rank (``runtime/faults.py``): a
+``drop_conn`` there kills that replica in process, as
+:meth:`kill_replica` does.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import torch
 
 from ...obs import metrics as dpxmon
 from ...runtime import env as _env
+from ...runtime import faults
 from ...runtime.device import default_generator
 from ...utils.logging import append_event
 from ..engine import EngineConfig, InferenceEngine
@@ -56,13 +59,27 @@ from .types import (REPLICA_DRAINING, REPLICA_FAILED, REPLICA_LIVE,
                     REPLICA_RETIRED, FleetConfig, FleetHandle, Replica,
                     ReplicaFailed)
 
-#: The op name of routed submits in the fault-injection grammar (the
-#: hook itself comes with the port's ``runtime/faults.py``).
+#: The op name of routed submits in the fault-injection grammar:
+#: ``drop_conn@op=fleet_submit[,rank=R|,call=N]`` kills the request's
+#: home replica in process.
 FLEET_OP = "fleet_submit"
 
 #: Rejection reasons that mean capacity (spillable) rather than an
 #: invalid request (a too-long prompt is rejected alike by every replica).
 _SPILL_REASONS = ("queue_full", "no_free_pages")
+
+
+class _ReplicaAbort:
+    """The ``drop_conn`` target of the ``fleet_submit`` hook: aborting
+    the link to a replica kills that replica in process (``kill`` is
+    ``os._exit``, the whole process)."""
+
+    def __init__(self, router: "FleetRouter", rid: int):
+        self._router = router
+        self._rid = rid
+
+    def abort(self) -> None:
+        self._router.kill_replica(self._rid, reason="fault_injected")
 
 
 class FleetRouter:
@@ -193,6 +210,11 @@ class FleetRouter:
             self._next_fid += 1
         key = placement.prefix_key(prompt, self._page_len)
         admitting = self._admitting()
+        if admitting:
+            home = placement.rendezvous(key, admitting)
+            faults.on_comm_op(FLEET_OP, rank=home,
+                              comm=_ReplicaAbort(self, home))
+            admitting = self._admitting()   # the hook may have killed it
         if not admitting:
             dpxmon.inc("fleet.rejected")
             raise AdmissionRejected(

@@ -46,6 +46,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ...runtime import faults
 from ...models.generate import (decode_step_slots_paged,
                                 prefill_partial_paged,
                                 spec_commit_slots_paged,
@@ -133,7 +134,9 @@ class PagedSlotPool:
     def _alloc(self, n: int) -> List[int]:
         """``n`` pages: free list first, then LRU eviction of
         refcount-zero indexed pages; all-or-nothing (a partial grab is
-        rolled back before the typed exhaustion raise)."""
+        rolled back before the typed exhaustion raise). Fires the
+        ``page_admit`` fault op (``runtime/faults.py``)."""
+        faults.on_comm_op("page_admit")
         out: List[int] = []
         while len(out) < n:
             pid = self.pool.take_free()

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+from ...runtime import faults
 from .pool import PagePool
 
 
@@ -130,6 +131,7 @@ class PrefixIndex:
                 best = pid
         if best is None:
             return None
+        faults.on_comm_op("page_evict")
         node = self._nodes.pop(best)
         del node.parent.children[node.chunk]
         pool.indexed[best] = False

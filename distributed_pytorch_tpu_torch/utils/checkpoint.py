@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from ..ckpt.errors import CkptError, CkptIncomplete, CkptShapeMismatch
-from ..optim import AdafactorState
+from ..optim import AdafactorState, Q8LogMoment, Q8Moment, q8_base
 from ..optim.sharded.optimizer import ShardedOptState
 from ..runtime import context
 from .logging import append_event, is_primary
@@ -136,14 +136,16 @@ def _flatten(tree) -> Tuple[List[str], List[Any], List[str]]:
     return keys, leaves, sorted(seq)
 
 
-def _map_with_keys(tree, fn, esc: Tuple[str, ...] = ()):
-    """``tree`` with every leaf replaced by ``fn(key, leaf)``."""
-    kids = _children(tree)
+def _map_with_keys(tree, fn, esc: Tuple[str, ...] = (), is_leaf=None):
+    """``tree`` with every leaf (and every subtree ``is_leaf`` accepts)
+    replaced by ``fn(key, leaf)``."""
+    kids = None if is_leaf is not None and is_leaf(tree) else \
+        _children(tree)
     if kids is None:
         return fn("/".join(esc), tree)
     if tree is None:
         return None
-    out = [_map_with_keys(child, fn, esc + (_escape(k),))
+    out = [_map_with_keys(child, fn, esc + (_escape(k),), is_leaf)
            for k, _, child in kids]
     if isinstance(tree, dict):
         return {k: v for (k, _, _), v in zip(kids, out)}
@@ -287,6 +289,29 @@ def _per_param(xs, n: int) -> bool:
             and all(isinstance(x, torch.Tensor) for x in xs))
 
 
+def _per_param_q8(xs, n: int) -> bool:
+    """A per-parameter list of ``adamw_8bit``'s int8 moments."""
+    return (isinstance(xs, list) and len(xs) == n and n > 0
+            and all(isinstance(x, (Q8Moment, Q8LogMoment)) for x in xs))
+
+
+def _q8_check_order(node, slot, key: str) -> None:
+    """Refuse an ``adamw_8bit`` node whose blocks do not run over the
+    JAX layout of its parameter: its codes and scales would be read with
+    another block's scale by the other side."""
+    nd = node.q.dim()
+    if slot.transpose and nd >= 2:
+        want = tuple(range(nd - 2)) + (nd - 1, nd - 2)
+    else:
+        want = slot.perm
+    if node.perm != want:
+        raise CkptError(
+            f"adamw_8bit moment {key!r} is blocked over the order "
+            f"{node.perm}, not its JAX layout's {want}: its parameter "
+            "lost its layout mark (optim.jax_perm) before optimizer.init",
+            rank=context.get_rank(), shard=f"opt_state.npz:{key}")
+
+
 def jax_opt_state(state, model, leaf=_host_copy) -> Any:
     """The port optimizer ``state`` of ``model`` (what
     ``optimizer.init(model.parameters())`` returned) as the JAX
@@ -294,14 +319,24 @@ def jax_opt_state(state, model, leaf=_host_copy) -> Any:
     int32 scalars, every per-parameter list as a JAX param tree.
     Adafactor's moments are lists in the JAX param tree's leaf order, as
     the JAX adafactor keeps them, and the factored moments of a Linear W
-    swap (its rows are the JAX kernel's columns). ``adamw_8bit``'s blocks run over the
-    flattened port layout, which has no JAX counterpart: it raises.
-    ``leaf`` makes each tensor from its JAX-layout view."""
+    swap (its rows are the JAX kernel's columns). ``adamw_8bit``'s
+    per-parameter int8 moments become the JAX package's ``Q8Moment`` /
+    ``Q8LogMoment`` trees keyed like the parameters: each node's codes in
+    the JAX layout, its block scales (and the log moment's midpoints)
+    as they are. The port blocks each moment over its parameter's JAX
+    layout (``optim.jax_perm``), so codes and scales mean there what
+    they mean here; a node blocked in another order raises
+    ``CkptError``. ``leaf`` makes each tensor from its JAX-layout
+    view."""
     tree, slot_list = _slots(model)
     n = len(list(model.parameters()))
 
     def per_param(xs):
         return _map_with_keys(tree, lambda _, s: leaf(s.to_jax(xs[s.index])))
+
+    def q8_node(key, x, s):
+        _q8_check_order(x, s, key)
+        return q8_base(x)(leaf(s.to_jax(x.q)), *[leaf(v) for v in x[1:]])
 
     def leaf_list(xs, swapped):
         return [leaf(s.to_jax((swapped if s.transpose else xs)[s.index]))
@@ -340,11 +375,9 @@ def jax_opt_state(state, model, leaf=_host_copy) -> Any:
             return None
         if _per_param(node, n):
             return per_param(node)
-        if isinstance(node, list) and len(node) == n and n > 0:
-            raise NotImplementedError(
-                f"optimizer state of per-parameter {type(node[0]).__name__}"
-                " (adamw_8bit's block codes) has no JAX layout to "
-                "checkpoint in")
+        if _per_param_q8(node, n):
+            return _map_with_keys(tree, lambda k, s: q8_node(k, node[s.index],
+                                                             s))
         if _is_namedtuple(node):
             return type(node)(*[conv(v) for v in node])
         if isinstance(node, (list, tuple)):
@@ -393,6 +426,17 @@ def _port_opt_state(jtree, like, model):
             out[s.index] = place(s.from_jax(src[i]), like_xs[s.index], key)
         return out
 
+    def per_param_q8(jt, like_xs):
+        out = [None] * n
+        for key, s in slot_list:
+            node, ref = get(jt, key), like_xs[s.index]
+            _q8_check_order(ref, s, key)
+            out[s.index] = type(ref)(
+                place(s.from_jax(node.q), ref.q, f"{key}/q"),
+                *[place(getattr(node, f), getattr(ref, f), f"{key}/{f}")
+                  for f in ref._fields[1:]])
+        return out
+
     def conv(jt, lk):
         if isinstance(lk, AdafactorState):
             return AdafactorState(step=conv(jt.step, lk.step),
@@ -405,6 +449,8 @@ def _port_opt_state(jtree, like, model):
             return jt.to(device=lk.device, dtype=lk.dtype, copy=True)
         if _per_param(lk, n):
             return per_param(jt, lk)
+        if _per_param_q8(lk, n):
+            return per_param_q8(jt, lk)
         if _is_namedtuple(lk):
             return type(lk)(*[conv(getattr(jt, f), getattr(lk, f))
                               for f in lk._fields])
@@ -579,19 +625,27 @@ def _write_full(tmp: str, step: int, params, opt_state,
 
 
 def _commit_full(ckpt_dir: str, step: int, tmp: str,
-                 keep: Optional[int] = None) -> str:
+                 keep: Optional[int] = None, rank: int = 0) -> str:
     """Atomically promote a fully written ``tmp`` dir to ``step_<step>``:
     a live copy is renamed aside first, so a crash between the two
-    renames leaves it discoverable as ``.old``."""
+    renames leaves it discoverable as ``.old``. Fires the ``DPX_FAULT``
+    ops ``ckpt_commit`` at entry and ``ckpt_commit_window`` just before
+    the rename that lands ``tmp`` (``runtime/faults.py``)."""
+    from ..runtime import faults
+
+    faults.on_comm_op("ckpt_commit", rank=rank)
     final = _step_dir(ckpt_dir, step)
     if os.path.exists(final):
         aside = final + f".old.{os.getpid()}"
         if os.path.exists(aside):
             shutil.rmtree(aside)
         os.replace(final, aside)
+        # the crash window: only the .old copy is complete here
+        faults.on_comm_op("ckpt_commit_window", rank=rank)
         os.replace(tmp, final)
         shutil.rmtree(aside, ignore_errors=True)
     else:
+        faults.on_comm_op("ckpt_commit_window", rank=rank)
         os.replace(tmp, final)
     _supersede_old_forms(ckpt_dir, step)
     if keep is not None:
@@ -611,12 +665,14 @@ def save_checkpoint(ckpt_dir: str, step: int, params,
     must be JSON-serializable; ``keep`` retains the newest ``keep``
     checkpoints after the save."""
     from ..comm.collectives import barrier
+    from ..runtime import faults
 
     if keep is not None and keep < 1:
         raise ValueError(f"keep must be >= 1, got {keep}")
     final = _step_dir(ckpt_dir, step)
     try:
         if is_primary():
+            faults.on_comm_op("ckpt", rank=context.get_rank())
             json.dumps(extra or {})     # reject before touching a file
             t0 = time.perf_counter()
             p_tree, o_tree = _as_tree(params, opt_state)
@@ -627,7 +683,8 @@ def save_checkpoint(ckpt_dir: str, step: int, params,
                 shutil.rmtree(tmp)
             os.makedirs(tmp)
             nbytes = _write_full(tmp, step, p_tree, o_tree, extra)
-            _commit_full(ckpt_dir, step, tmp, keep=keep)
+            _commit_full(ckpt_dir, step, tmp, keep=keep,
+                         rank=context.get_rank())
             append_event("ckpt_save", step=step, rank=context.get_rank(),
                          world=context.get_world_size(), sharded=False,
                          async_save=False, bytes=nbytes, shards=1,

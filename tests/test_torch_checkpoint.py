@@ -18,6 +18,17 @@ against the JAX package's, on the same on-disk format.
   moments (factored ones of a Linear W swapped) map onto JAX's after one
   step of each package (norm-relative 1e-4 per tensor: squared float32
   gradients of two summation orders) and round-trip exactly.
+- ``adamw_8bit``: its int8 moments as JAX's ``Q8Moment`` /
+  ``Q8LogMoment`` trees; a port round trip is bit-exact and resumes
+  exactly; a JAX-written state restores in the port and a port-written
+  one in JAX, leaf for leaf, with every dequantized moment equal to the
+  writer's (the first bit for bit, the second to float32 ``exp``'s
+  ulps: the blocks run over the JAX layout in both, a transposed Linear
+  W included) and the next update on the same
+  gradients equal to the writer's (rtol 1e-6: float32 rounding of two
+  libraries); a state blocked over another order is refused, typed; in
+  format 2 the codes shard as their parameters and the scales stay
+  whole (the manifest == JAX's).
 - World 2 over gloo (``examples/train_transformer_lm.py`` in two CPU
   ranks): the primary writes one checkpoint, both ranks resume from it
   with the same continued losses.
@@ -26,6 +37,7 @@ Serial run time ~45 s.
 """
 
 import filecmp
+import json
 import os
 
 import jax
@@ -357,9 +369,229 @@ def test_typed_errors_and_unported_formats(tmp_path):
         tck.restore_checkpoint(str(tmp_path))
     with pytest.raises(ValueError, match="param_specs"):
         CheckpointManager(str(tmp_path), sharded=True)
-    with pytest.raises(NotImplementedError, match="adamw_8bit"):
-        tck.save_checkpoint(str(tmp_path / "q"), 0, pm, toptim.adamw_8bit(
-            1e-3).init(pm.parameters()))
+    # adamw_8bit's int8 state, once refused, now saves and restores
+    q_state = toptim.adamw_8bit(1e-3).init(pm.parameters())
+    tck.save_checkpoint(str(tmp_path / "q"), 0, pm, q_state)
+    ck = tck.restore_checkpoint(str(tmp_path / "q"), like_params=pm,
+                                like_opt_state=q_state)
+    _assert_states_equal(ck.opt_state, q_state)
+
+
+def _q8_stepped(seed=0, steps=1):
+    """A port LM and its ``adamw_8bit`` state after ``steps`` steps."""
+    _, _, pm = jax_and_port_lm(seed=seed, pos="learned")
+    opt = toptim.adamw_8bit(LR)
+    state = opt.init(pm.parameters())
+    step = make_train_step(_port_loss, opt)
+    for i in range(steps):
+        state = step(pm, state, _batch(i)).opt_state
+    return pm, opt, state
+
+
+def _is_q8(x):
+    return isinstance(x, (joptim.Q8Moment, joptim.Q8LogMoment))
+
+
+def _port_moments(state, pm):
+    """The port ``adamw_8bit`` state's moments dequantized, in the JAX
+    layout, keyed ``mu/<param key>`` / ``nu/<param key>``."""
+    params = list(pm.parameters())
+    out = {}
+    for key, s in tck._slots(pm)[1]:
+        shape = params[s.index].shape
+        out[f"mu/{key}"] = s.to_jax(toptim._q8_dequant(
+            state.mu[s.index], shape)).numpy()
+        out[f"nu/{key}"] = s.to_jax(toptim._q8_dequant_log(
+            state.nu[s.index], shape)).numpy()
+    return out
+
+
+def _jax_moments(state, params):
+    """The same of a JAX ``adamw_8bit`` state."""
+    out = {}
+    for name, deq in (("mu", joptim._q8_dequant),
+                      ("nu", joptim._q8_dequant_log)):
+        tree = jax.tree_util.tree_map(
+            lambda qm, p, f=deq: np.asarray(f(qm, p.shape)),
+            getattr(state, name), params, is_leaf=_is_q8)
+        out.update({f"{name}/{k}": v for k, v in _leaves(tree).items()})
+    return out
+
+
+def _assert_moments_equal(got, want):
+    """The first moments bit for bit; the second to the few ulps of
+    float32 ``exp`` in two libraries, and of the 1e-12 floor subtracted
+    from it (~1e-19) (its codes and affine maps are equal bit for bit:
+    the leaves are compared separately). A code read with another
+    block's scale is off by orders of magnitude more."""
+    assert got.keys() == want.keys()
+    for k in want:
+        if k.startswith("mu/"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        else:
+            np.testing.assert_allclose(got[k], want[k], rtol=3e-7,
+                                       atol=1e-18, err_msg=k)
+
+
+def _port_grads(pm, jgrads):
+    """JAX gradients as the port's per-parameter list."""
+    leaves = _leaves(jax.tree_util.tree_map(np.asarray, jgrads))
+    out = [None] * len(list(pm.parameters()))
+    for key, s in tck._slots(pm)[1]:
+        out[s.index] = s.from_jax(torch.from_numpy(
+            np.array(leaves[key]))).contiguous()
+    return out
+
+
+def _assert_params_close(pm, jparams):
+    got = _leaves(to_jax_params(pm))
+    for k, v in _leaves(jax.tree_util.tree_map(np.asarray, jparams)).items():
+        np.testing.assert_allclose(got[k], v, rtol=1e-6, atol=1e-7,
+                                   err_msg=k)
+
+
+def test_adamw_8bit_state_roundtrips_with_exact_resume(tmp_path):
+    """JAX's ``test_adamw_8bit_state_roundtrips_with_exact_resume`` on
+    the port: codes, scales, midpoints and the step come back bit for
+    bit (int8 codes stay int8, each node in JAX's field order), and a
+    step from the restored state equals one from the live state."""
+    pm, opt, state = _q8_stepped(steps=2)
+    tck.save_checkpoint(str(tmp_path), 2, pm, state)
+    _, _, pm2 = jax_and_port_lm(seed=9, pos="learned")
+    ck = tck.restore_checkpoint(str(tmp_path), like_params=pm2,
+                                like_opt_state=opt.init(pm2.parameters()))
+    assert ck.opt_state.step == 2
+    assert all(m.q.dtype == torch.int8 for m in ck.opt_state.mu)
+    _assert_states_equal(ck.opt_state, state)
+    tree = tck.jax_opt_state(state, pm)
+    assert type(tree.mu["tok"]["emb"])._fields == joptim.Q8Moment._fields
+    assert type(tree.nu["tok"]["emb"])._fields == \
+        joptim.Q8LogMoment._fields
+    step = make_train_step(_port_loss, opt)
+    a = step(pm, state, _batch(5))
+    b = step(pm2, ck.opt_state, _batch(5))
+    assert a.loss.item() == b.loss.item()
+    for x, y in zip(pm.parameters(), pm2.parameters()):
+        assert torch.equal(x, y)
+    _assert_states_equal(b.opt_state, a.opt_state)
+
+
+def test_adamw_8bit_jax_checkpoint_restores_in_the_port(tmp_path):
+    """A checkpoint JAX wrote of its ``adamw_8bit`` state restores in the
+    port: every code, scale and midpoint equal to JAX's in the JAX
+    layout, the step count too; every moment the port dequantizes equals
+    JAX's; the next update on JAX's gradients equals JAX's; and the
+    port's own resumed step runs."""
+    jm, params, pm = jax_and_port_lm(seed=2, pos="learned")
+    jopt = joptim.adamw_8bit(LR)
+    state = jopt.init(params)
+    grads = jax.grad(_jax_loss(jm))(params, _batch(0))
+    params, state = jopt.update(grads, state, params)
+    jck.save_checkpoint(str(tmp_path), 1, params, state)
+    topt = toptim.adamw_8bit(LR)
+    ck = tck.restore_checkpoint(str(tmp_path), like_params=pm,
+                                like_opt_state=topt.init(pm.parameters()))
+    assert ck.opt_state.step == 1
+    jl = _leaves(jax.tree_util.tree_map(np.asarray, state))
+    got = _leaves(tck.jax_opt_state(ck.opt_state, pm))
+    assert got.keys() == jl.keys()
+    for k, v in got.items():
+        np.testing.assert_array_equal(np.asarray(v), jl[k], err_msg=k)
+    _assert_moments_equal(_port_moments(ck.opt_state, pm),
+                          _jax_moments(state, params))
+    grads = jax.grad(_jax_loss(jm))(params, _batch(1))
+    params2, state2 = jopt.update(grads, state, params)
+    state_p = topt.update(_port_grads(pm, grads), ck.opt_state,
+                          list(pm.parameters()))
+    _assert_params_close(pm, params2)
+    assert state_p.step == int(state2.step) == 2
+    out = make_train_step(_port_loss, topt)(pm, state_p, _batch(2))
+    assert np.isfinite(out.loss.item()) and out.opt_state.step == 3
+
+
+def test_adamw_8bit_port_checkpoint_restores_in_jax(tmp_path):
+    """The port's ``adamw_8bit`` checkpoint restores through JAX
+    ``restore_checkpoint(like_params=, like_opt_state=)`` into JAX's own
+    state structure, every leaf equal to the port's in the JAX layout
+    (int8 codes, float32 scales and midpoints, the int32 step); every
+    moment JAX dequantizes equals the port's, and JAX's next update on
+    the same gradients equals the port's."""
+    jm, params, _ = jax_and_port_lm(seed=3, pos="learned")
+    pm, topt, state = _q8_stepped(steps=1)
+    tck.save_checkpoint(str(tmp_path), 4, pm, state)
+    like_s = joptim.adamw_8bit(LR).init(params)
+    ck = jck.restore_checkpoint(str(tmp_path), like_params=params,
+                                like_opt_state=like_s)
+    assert ck.step == 4
+    assert (jax.tree_util.tree_structure(ck.opt_state)
+            == jax.tree_util.tree_structure(like_s))
+    assert int(ck.opt_state.step) == 1
+    want = _leaves(tck.jax_opt_state(state, pm))
+    for k, v in _leaves(ck.opt_state).items():
+        assert np.asarray(v).dtype == np.asarray(want[k]).dtype, k
+        np.testing.assert_array_equal(np.asarray(v), np.asarray(want[k]),
+                                      err_msg=k)
+    jparams = jax.tree_util.tree_map(jnp.asarray, ck.params)
+    _assert_moments_equal(_jax_moments(ck.opt_state, jparams),
+                          _port_moments(state, pm))
+    grads = jax.grad(_jax_loss(jm))(jparams, _batch(1))
+    params2, _ = joptim.adamw_8bit(LR).update(grads, ck.opt_state, jparams)
+    topt.update(_port_grads(pm, grads), state, list(pm.parameters()))
+    _assert_params_close(pm, params2)
+
+
+def test_adamw_8bit_state_blocked_in_another_order_is_refused(tmp_path):
+    """A parameter that lost its layout mark before ``optimizer.init``
+    (a Linear W made anew without ``optim.mark_jax_perm``) has its
+    moments blocked over the port's (out, in) order, whose codes the
+    JAX layout would read with other blocks' scales: saving that state,
+    and restoring a file into it, raise ``CkptError``."""
+    from distributed_pytorch_tpu_torch.ckpt import CkptError
+    pm, opt, state = _q8_stepped(steps=1)
+    tck.save_checkpoint(str(tmp_path), 1, pm, state)
+    w = pm.blocks[0].attn.qkv.weight
+    delattr(w, toptim.JAX_PERM)
+    unmarked = opt.init(pm.parameters())
+    with pytest.raises(CkptError, match="qkv"):
+        tck.save_checkpoint(str(tmp_path / "x"), 1, pm, unmarked)
+    with pytest.raises(CkptError, match="JAX layout"):
+        tck.restore_checkpoint(str(tmp_path), like_params=pm,
+                               like_opt_state=unmarked)
+
+
+def test_adamw_8bit_format2_manifest_equals_jax_and_round_trips(tmp_path):
+    """Format 2 (dp 4, one writer): the codes shard as their parameters
+    and the scales and midpoints stay whole, so the manifest of a fresh
+    ``adamw_8bit`` state equals the one JAX's manager writes for its own
+    (specs derived by the manager, and ``shard_layouts``' per-parameter
+    specs); a stepped state restores bit for bit."""
+    from distributed_pytorch_tpu.ckpt import CheckpointManager as JManager
+    from distributed_pytorch_tpu.parallel import fsdp as jfsdp
+    from distributed_pytorch_tpu_torch.parallel import fsdp
+    jm, params, pm = jax_and_port_lm(seed=0, pos="learned")
+    with JManager(str(tmp_path / "j"), sharded=True,
+                  param_specs=jfsdp.fsdp_param_specs(params, 4),
+                  axis_sizes={"dp": 4}) as mgr:
+        mgr.save(1, params, joptim.adamw_8bit(LR).init(params))
+    want = json.load(open(tmp_path / "j" / "step_1" / "manifest.json"))
+    opt = toptim.adamw_8bit(LR)
+    fresh = opt.init(pm.parameters())
+    p_specs, o_specs, axes = fsdp.shard_layouts(pm, fresh, n_shards=4)
+    for name, kw in (("derived", {}), ("layouts", dict(opt_specs=o_specs))):
+        with CheckpointManager(str(tmp_path / name), sharded=True,
+                               param_specs=p_specs, axis_sizes=axes,
+                               **kw) as mgr:
+            mgr.save(1, pm, fresh)
+        assert json.load(open(tmp_path / name / "step_1" /
+                              "manifest.json")) == want, name
+    stepped = make_train_step(_port_loss, opt)(pm, fresh, _batch()).opt_state
+    with CheckpointManager(str(tmp_path / "s"), sharded=True,
+                           param_specs=p_specs, axis_sizes=axes) as mgr:
+        mgr.save(2, pm, stepped)
+    ck = tck.restore_checkpoint(str(tmp_path / "s"), like_params=pm,
+                                like_opt_state=opt.init(pm.parameters()))
+    assert ck.step == 2
+    _assert_states_equal(ck.opt_state, stepped)
 
 
 LM = ["--device", "cpu", "--batch-size", "2", "--seq-len", "16", "--dim",

@@ -22,7 +22,9 @@ against the JAX package's, and its engine contracts.
   JAX's ``generate()``): exact streams with cold, shared-prefix and
   sub-page prompts, hits [0, 2, 0], the booked bytes, every page freed;
   the q8 bound; victim-only prefill death and a typed ``HandoffTimeout``
-  through transport doubles; a corrupt frame failing only its victim; a
+  through transport doubles and through ``DPX_FAULT`` (``drop_conn`` /
+  ``delay`` / ``flaky`` at ``handoff_send``, the last retried twice
+  with equal streams); a corrupt frame failing only its victim; a
   prefill crash failing its request typed; submit validation, shutdown
   draining typed, a non-pollable transport and a windowed model
   refused; the TTFT decomposition and the log records; speculation on
@@ -521,6 +523,96 @@ def test_handoff_timeout_typed():
     assert eng.decode.pool.pool.live_pages() == 0
 
 
+# -- the same cases through DPX_FAULT (the JAX package's chaos tests) ----
+
+@pytest.fixture
+def armed():
+    from distributed_pytorch_tpu_torch.runtime import faults
+    faults.reset()
+    yield faults
+    faults.reset()
+
+
+def test_dpx_fault_drop_conn_mid_handoff_fails_victims_only(armed):
+    """JAX's ``test_chaos_prefill_death_mid_handoff_victim_only``:
+    ``drop_conn@op=handoff_send,call=2`` severs the transport entering
+    the second handoff; the victim fails ``PrefillEngineDied`` and the
+    decoding stream finishes equal to ``generate()``."""
+    pm = _lm1()
+    rng = np.random.default_rng(8)
+    a = rng.integers(0, 61, (9,)).astype(np.int32)
+    b = rng.integers(0, 61, (12,)).astype(np.int32)
+    sp = SamplingParams(max_new_tokens=20)
+    armed.install("drop_conn@op=handoff_send,call=2")
+    eng = _disagg(pm, n_slots=2)
+    with eng:
+        ha = eng.submit(a, sp)
+        while not ha.tokens:
+            time.sleep(0.005)
+        hb = eng.submit(b, sp)
+        with pytest.raises(PrefillEngineDied) as ei:
+            hb.result(timeout=60)
+        out_a = ha.result(timeout=60)
+        with pytest.raises(AdmissionRejected) as rej:
+            eng.submit(a, sp)
+    assert ei.value.request_id == hb.request_id
+    assert ei.value.engine == "prefill"
+    assert rej.value.reason == "prefill_dead"
+    np.testing.assert_array_equal(out_a, _gen(pm, a, 20))
+    assert armed.fired() == ["drop_conn@op=handoff_send,call=2"]
+    assert eng.decode.pool.pool.live_pages() == 0
+
+
+def test_dpx_fault_delayed_handoff_is_a_typed_timeout(armed):
+    """JAX's ``test_handoff_timeout_typed``: the second send stalled
+    past ``DPX_HANDOFF_TIMEOUT_MS`` by ``delay@op=handoff_send,call=2``
+    fails its request as ``HandoffTimeout``; the other stream is
+    untouched."""
+    pm = _lm1()
+    rng = np.random.default_rng(9)
+    a = rng.integers(0, 61, (9,)).astype(np.int32)
+    b = rng.integers(0, 61, (6,)).astype(np.int32)
+    sp = SamplingParams(max_new_tokens=24)
+    armed.install("delay@op=handoff_send,call=2,ms=600")
+    eng = _disagg(pm, n_slots=2, handoff_timeout_ms=80)
+    with eng:
+        ha = eng.submit(a, sp)
+        while not ha.tokens:
+            time.sleep(0.005)
+        hb = eng.submit(b, sp)
+        with pytest.raises(HandoffTimeout) as ei:
+            hb.result(timeout=60)
+        out_a = ha.result(timeout=60)
+    assert ei.value.request_id == hb.request_id
+    assert ei.value.deadline_ms == 80.0
+    assert ei.value.engine == "transport"
+    np.testing.assert_array_equal(out_a, _gen(pm, a, 24))
+
+
+def test_dpx_fault_flaky_handoff_recovers_exactly(armed, tmp_path,
+                                                  monkeypatch):
+    """``flaky@op=handoff_send,count=2``: the handoff is retried twice
+    (two ``comm_retry`` events) and every stream equals ``generate()``."""
+    log = tmp_path / "events.jsonl"
+    monkeypatch.setenv("DPX_METRICS_LOG", str(log))
+    monkeypatch.setenv("DPX_RETRY_BACKOFF_MS", "1")
+    pm = _lm1()
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, 61, (n,)).astype(np.int32) for n in (9, 6)]
+    sp = SamplingParams(max_new_tokens=8)
+    armed.install("flaky@op=handoff_send,count=2")
+    eng = _disagg(pm, n_slots=2)
+    with eng:
+        outs = [h.result(timeout=60) for h in
+                [eng.submit(p, sp) for p in prompts]]
+    for p, out in zip(prompts, outs):
+        np.testing.assert_array_equal(out, _gen(pm, p, 8))
+    evs = [json.loads(x) for x in log.read_text().splitlines()]
+    assert [(e["op"], e["attempt"]) for e in evs
+            if e.get("event") == "comm_retry"] == [("handoff_send", 1),
+                                                   ("handoff_send", 2)]
+
+
 class _FlipSecondFrame(LocalTransport):
     def send(self, frame, kv_bytes):
         if self.frames_sent == 1:
@@ -756,7 +848,12 @@ def test_engine_metrics_flow_to_logger(tmp_path):
 @pytest.mark.parametrize("name", ["DPX_SERVE_DISAGG", "DPX_HANDOFF_WIDTH",
                                   "DPX_HANDOFF_TIMEOUT_MS",
                                   "DPX_FLEET_REPLICAS",
-                                  "DPX_FLEET_SPILL_QUEUE"])
+                                  "DPX_FLEET_SPILL_QUEUE", "DPX_FAULT",
+                                  "DPX_CHAOS", "DPX_CHAOS_WORLD",
+                                  "DPX_ELASTIC_ATTEMPT", "DPX_ELASTIC",
+                                  "DPX_PLATFORM", "DPX_WORKER_TAG",
+                                  "DPX_ELASTIC_TEST_LEAK", "DPX_RETRY_MAX",
+                                  "DPX_RETRY_BACKOFF_MS"])
 def test_env_defaults_equal_jax(name):
     from distributed_pytorch_tpu.runtime import env as jenv
     from distributed_pytorch_tpu_torch.runtime import env as tenv

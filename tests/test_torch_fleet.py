@@ -13,7 +13,9 @@ package's, and the port's ``examples/serve_lm.py``.
   walk the fleet; a drain while streaming finishes the stream exactly
   and re-homes the prompt; the last live replica cannot be drained; a
   kill fails only its replica's requests, typed ``ReplicaFailed``, and
-  the survivors stream exactly; the fleet log's events (names and
+  the survivors stream exactly, and so does a ``drop_conn@op=
+  fleet_submit`` fault (the JAX fleet chaos leg); the fleet log's
+  events (names and
   fields) equal the JAX fleet's on the same scenario.
 - The example: ``serve_lm`` runs on the CPU plain, ``--paged`` and
   ``--disagg`` (f32 and q8), and its records carry the TTFT
@@ -331,6 +333,55 @@ def test_kill_is_isolated_and_survivors_exact(tmp_path):
     failed = _events(log, ("replica_failed",))
     assert len(failed) == 1 and failed[0]["rank"] == victim
     assert failed[0]["inflight"] >= 1
+
+
+def test_dpx_fault_fleet_submit_kills_only_the_home_replica(tmp_path):
+    """``drop_conn@op=fleet_submit,call=1`` (the JAX package's fleet
+    chaos leg): the submit's home replica dies in process, only its
+    in-flight request fails, typed ``ReplicaFailed`` naming it, the
+    submit itself is served by the survivor, and every other stream
+    equals ``generate()``."""
+    from distributed_pytorch_tpu_torch.runtime import faults
+    model = _lm()
+    log = str(tmp_path / "fleet.jsonl")
+    fleet = FleetRouter(model, FleetConfig(
+        n_replicas=2, metrics=MetricsLogger(log),
+        engine=EngineConfig(n_slots=2, max_len=MAX_LEN, paged=True,
+                            page_len=8)))
+    sp = SamplingParams(max_new_tokens=48)
+    pa = np.arange(14) % 61
+    faults.reset()
+    try:
+        with fleet:
+            victim = fleet.home_of(pa)
+            pb = next((np.arange(14) + s) % 61 for s in range(1, 400)
+                      if fleet.home_of((np.arange(14) + s) % 61) != victim)
+            pc = next((np.arange(14) * 3 + s) % 61 for s in range(1, 400)
+                      if fleet.home_of((np.arange(14) * 3 + s) % 61)
+                      == victim)
+            ha = fleet.submit(pa, sp)
+            hb = fleet.submit(pb, sp)
+            while not ha.tokens:
+                time.sleep(0.005)
+            faults.install("drop_conn@op=fleet_submit,call=1")
+            hc = fleet.submit(pc, sp)
+            with pytest.raises(ReplicaFailed) as ei:
+                ha.result(timeout=60)
+            assert ei.value.replica == victim
+            assert ei.value.request_id == ha.request_id
+            assert hc.replica == 1 - victim
+            np.testing.assert_array_equal(hb.result(timeout=120),
+                                          _gen(model, pb, sp))
+            np.testing.assert_array_equal(hc.result(timeout=120),
+                                          _gen(model, pc, sp))
+            assert fleet.stats()["replicas"][victim]["state"] == \
+                REPLICA_FAILED
+        assert faults.fired() == ["drop_conn@op=fleet_submit,call=1"]
+    finally:
+        faults.reset()
+    failed = _events(log, ("replica_failed",))
+    assert [(r["rank"], r["reason"]) for r in failed] == \
+        [(victim, "fault_injected")]
 
 
 def _scenario(fleet_cls, cfg_cls, eng_cls, logger_cls, model, params, log):

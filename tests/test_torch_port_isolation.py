@@ -83,6 +83,15 @@ def test_the_observability_modules_are_the_ports_own():
         assert os.path.commonpath([PKG, mod.__file__]) == PKG, mod
 
 
+def test_the_fault_layer_is_the_ports_own():
+    """The stdlib-only fault and chaos modules (and the elastic and
+    multi-host runtime) are the port's copies, loaded from its tree."""
+    from distributed_pytorch_tpu_torch.runtime import (chaos, elastic,
+                                                       faults, multihost)
+    for mod in (faults, chaos, elastic, multihost):
+        assert os.path.commonpath([PKG, mod.__file__]) == PKG, mod
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, distributed_pytorch_tpu_torch, "
             "distributed_pytorch_tpu_torch.serve, "
@@ -125,7 +134,12 @@ def test_importing_the_port_loads_no_jax():
             "distributed_pytorch_tpu_torch.obs.health, "
             "distributed_pytorch_tpu_torch.perfbench, "
             "distributed_pytorch_tpu_torch.perfbench.stats, "
-            "distributed_pytorch_tpu_torch.serve.fleet.autoscale\n"
+            "distributed_pytorch_tpu_torch.serve.fleet.autoscale, "
+            "distributed_pytorch_tpu_torch.runtime.faults, "
+            "distributed_pytorch_tpu_torch.runtime.chaos, "
+            "distributed_pytorch_tpu_torch.runtime.elastic, "
+            "distributed_pytorch_tpu_torch.runtime.multihost, "
+            "distributed_pytorch_tpu_torch.runtime.watchdog\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
             "m.startswith(('jax.', 'jaxlib.')) or "
             "m == 'distributed_pytorch_tpu' or "

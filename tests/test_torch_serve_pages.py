@@ -19,7 +19,9 @@ JAX package's, and the engine's paged mode.
   ``generate()`` stream, with exact hit accounting; shared pages' bytes
   are unchanged by decode; references drop on retirement and on a crash
   drain; typed exhaustion mid-decode fails only the victim; admission
-  back-pressure requeues and serves after a retirement; worst-case
+  back-pressure requeues and serves after a retirement; the same
+  exhaustion under ``delay@op=page_admit`` (JAX's chaos case), and
+  ``page_evict`` firing at an LRU eviction; worst-case
   submit rejection; ``prefix_share=False``; windowed models rejected;
   page metrics reach the logger; ``kv_dtype="q8"|"q4"`` builds the
   quantized pool (``tests/test_torch_kvq.py`` holds it to JAX's) and the
@@ -479,6 +481,44 @@ def test_pool_exhaustion_mid_decode_fails_the_victim_only():
     np.testing.assert_array_equal(out_a, _gen(model, a, 4, max_len=16))
     assert hb.metrics["outcome"] == "no_free_pages"
     assert eng.pool.pool.live_pages() == 0
+
+
+def test_chaos_page_admit_delay_with_exhaustion_mid_decode():
+    """JAX's ``test_chaos_pool_exhaustion_mid_decode_typed_victim``: the
+    same exhaustion under ``delay@op=page_admit,call=1,ms=1``; the
+    page-op fault fired, the victim fails typed and alone, the other
+    stream equals ``generate()``; and the LRU eviction hook fires
+    ``page_evict`` when a refcount-zero page is reclaimed."""
+    from distributed_pytorch_tpu_torch.runtime import faults
+    faults.reset()
+    try:
+        faults.install("delay@op=page_admit,call=1,ms=1")
+        model = _lm1()
+        eng = _paged(model, n_slots=2, max_len=16, page_len=4, n_pages=4)
+        rng = np.random.default_rng(8)
+        a = rng.integers(0, 61, (4,)).astype(np.int32)
+        b = rng.integers(0, 61, (8,)).astype(np.int32)
+        with eng:
+            ha = eng.submit(a, SamplingParams(max_new_tokens=4))
+            hb = eng.submit(b, SamplingParams(max_new_tokens=6))
+            with pytest.raises(PagePoolExhausted) as ei:
+                hb.result(timeout=60)
+            out_a = ha.result(timeout=60)
+        assert ei.value.request_id == hb.request_id
+        assert ei.value.iteration is not None and ei.value.free_pages == 0
+        np.testing.assert_array_equal(out_a, _gen(model, a, 4, max_len=16))
+        assert faults.fired() == ["delay@op=page_admit,call=1"]
+        assert eng.pool.pool.live_pages() == 0
+        faults.install("delay@op=page_evict,ms=1")
+        pool, index = PagePool(4, 4), PrefixIndex(4)
+        pages = [pool.take_free() for _ in range(2)]
+        index.insert(np.arange(8, dtype=np.int32), 2, pages, pool)
+        for pid in pages:
+            pool.decref(pid)
+        assert index.evict_lru(pool) == pages[1]
+        assert faults.fired()[-1] == "delay@op=page_evict,call=1"
+    finally:
+        faults.reset()
 
 
 def test_admission_backpressure_requeues_then_serves():

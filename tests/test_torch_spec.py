@@ -18,7 +18,9 @@ against the JAX package's.
   (rate 1.0, k+1 tokens an iteration), a zero draft nothing and an
   unrelated draft little; ``draft_len`` beyond the remaining budget;
   spec and sampled requests in one batch; the tenant quota rejects,
-  then releases; construction errors.
+  then releases; construction errors; ``flaky@op=spec_verify`` fails
+  only the speculating request, typed, and ``delay@op=spec_verify``
+  trips its deadline (the JAX package's ``TestChaos``).
 - A rejection at a page boundary leaves the next page unallocated and
   unquantized, and an accepted token on a fresh page sits exact in the
   tail (the port's own test of the contract whose JAX test fails in this
@@ -459,6 +461,66 @@ def test_mixed_spec_and_sampled_batch():
     np.testing.assert_array_equal(out_s, ref_s)
     assert eng.stats()["spec"]["proposed"] > 0
     assert hs.metrics["spec_proposed"] == 0
+
+
+# ---------------------------------------------------------------------------
+# chaos: DPX_FAULT at the speculation hooks (JAX TestChaos)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def armed():
+    from distributed_pytorch_tpu_torch.runtime import faults
+    faults.reset()
+    yield faults
+    faults.reset()
+
+
+def test_flaky_verify_fails_only_the_victim(armed):
+    """``flaky@op=spec_verify`` fails the speculating request as a typed
+    ``SpecDecodeError`` (stage, request and iteration named) while the
+    co-resident sampled stream equals its standalone ``generate()``."""
+    from distributed_pytorch_tpu_torch.serve import SpecDecodeError
+    model, draft = _lm(), _draft()
+    prompts = _prompts()
+    sp_s = SamplingParams(max_new_tokens=12, temperature=0.7, top_k=8)
+    ref_b = generate(model, prompts[1][None], 12, temperature=0.7, top_k=8,
+                     generator=torch.Generator().manual_seed(9))[0].numpy()
+    eng = InferenceEngine(model, _spec_cfg(draft, n_slots=2))
+    with eng:
+        eng.submit(prompts[0], SamplingParams(max_new_tokens=6)).result(
+            timeout=120)
+        armed.install("flaky@op=spec_verify,count=1")
+        ha = eng.submit(prompts[0], SamplingParams(max_new_tokens=12))
+        hb = eng.submit(prompts[1], sp_s,
+                        generator=torch.Generator().manual_seed(9))
+        out_b = hb.result(timeout=120)
+        with pytest.raises(SpecDecodeError) as ei:
+            ha.result(timeout=120)
+    assert ei.value.stage == "verify"
+    assert ei.value.request_id == ha.request_id
+    assert ei.value.iteration is not None
+    np.testing.assert_array_equal(out_b, ref_b)
+    assert armed.fired() == ["flaky@op=spec_verify,call=1"]
+
+
+def test_delay_verify_trips_the_victims_deadline(armed):
+    """A stalled verify (``delay@op=spec_verify``) is charged to the
+    speculating request's own deadline: a typed
+    ``RequestDeadlineExceeded`` at the next sweep, stage ``running``."""
+    from distributed_pytorch_tpu_torch.serve import RequestDeadlineExceeded
+    model, draft = _lm(), _draft()
+    prompt = _prompts()[0]
+    eng = InferenceEngine(model, _spec_cfg(draft, n_slots=2))
+    with eng:
+        eng.submit(prompt, SamplingParams(max_new_tokens=6)).result(
+            timeout=120)
+        armed.install("delay@op=spec_verify,ms=600")
+        h = eng.submit(prompt, SamplingParams(max_new_tokens=40,
+                                              deadline_ms=300))
+        with pytest.raises(RequestDeadlineExceeded) as ei:
+            h.result(timeout=120)
+    assert ei.value.stage == "running"
+    assert ei.value.request_id == h.request_id
 
 
 # ---------------------------------------------------------------------------

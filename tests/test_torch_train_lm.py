@@ -18,9 +18,11 @@ summation order only; seen 2.5e-7):
   the JAX run's continued losses (rtol 1e-5);
 - ``--fused-ce --clip-norm --warmup-steps`` over ``--text`` against the
   JAX example (rtol 1e-5); ``--trace`` and ``--log`` write their files;
-  ``--elastic`` raises naming its item, alone and beside
-  ``--sharded-ckpt`` (``--fsdp`` is ported: ``test_torch_fsdp.py``;
-  ``--sharded-ckpt``: ``test_torch_ckpt_sharded.py``).
+  ``--elastic`` without ``--save`` exits with the JAX example's message,
+  and beside ``--sharded-ckpt --save`` runs in its supervised child
+  (``--fsdp``: ``test_torch_fsdp.py``; ``--sharded-ckpt``:
+  ``test_torch_ckpt_sharded.py``; the elastic relaunch:
+  ``test_torch_elastic.py``).
 
 Serial run time ~31 s.
 """
@@ -193,15 +195,29 @@ def test_trace_log_and_the_done_line(tmp_path, capsys):
     assert rec["prefetch_worker_ms_per_batch"] > 0
 
 
+def _jax_elastic_message() -> str:
+    """The text the JAX example exits with on ``--elastic`` without
+    ``--save`` (its ``__main__`` block)."""
+    src = open(jex.__file__).read()
+    return re.search(r'raise SystemExit\("(--elastic[^"]*)"\)', src).group(1)
+
+
 @pytest.mark.parametrize("flag,item", [
-    # --sharded-ckpt is ported (test_torch_ckpt_sharded.py); beside the
-    # unported --elastic it still raises for --elastic's item
+    # --elastic is ported (ROADMAP.md Queue A item 6): beside
+    # --sharded-ckpt with --save it runs; without --save it exits
     pytest.param(["--sharded-ckpt", "--elastic", "1"], "item 6",
                  id="flag1-item 6"),
     pytest.param(["--elastic", "2"], "item 6", id="flag2-item 6")])
-def test_unported_flags_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train_transformer_lm.main_worker(0, 1, ARGS + CPU + flag,
-                                         quiet=True)
-    with pytest.raises(NotImplementedError, match=item):
-        train_transformer_lm.main(ARGS + CPU + flag)
+def test_unported_flags_raise(flag, item, tmp_path):
+    from distributed_pytorch_tpu_torch.utils.checkpoint import latest_step
+    if "--sharded-ckpt" not in flag:
+        with pytest.raises(SystemExit, match=re.escape(
+                _jax_elastic_message())):
+            train_transformer_lm.main(ARGS + CPU + flag)
+        return
+    ck = str(tmp_path / "ck")
+    train_transformer_lm.main(ARGS + CPU + flag + ["--save", ck,
+                                                   "--save-every", "4"])
+    assert latest_step(ck) == 7
+    with open(tmp_path / "ck" / "step_7" / "manifest.json") as f:
+        assert json.load(f)["format"] == 2

@@ -23,8 +23,16 @@ records under the same names, so ``tools/dpxtrace.py`` and
   ``DPX_METRICS_LOG``) as ``trace_span`` events, one ``O_APPEND`` write
   per line, so the ranks sharing one file keep their lines whole.
 
-With ``DPX_TRACE`` off, :func:`span` is one module-global read and one
-``if`` returning a shared no-op context manager.
+* **Profiler bridge**: whenever a ``torch.profiler`` is recording, every
+  :func:`span` also opens a ``record_function`` range named
+  ``dpx.<span name>``, ``DPX_TRACE`` on or off, so the spans sit on the
+  device trace's clock beside the kernels they launched. Records are
+  still written only under ``DPX_TRACE``; :func:`emit_span`, timed after
+  the fact, opens no range.
+
+With ``DPX_TRACE`` off and no profiler recording, :func:`span` is one
+module-global read, one read of torch's profiler flag and two tests
+returning a shared no-op context manager.
 
 :func:`wall_now` is the one wall stamp of the port's loggers
 (``utils/logging.py``): anchor wall time plus elapsed
@@ -38,6 +46,7 @@ import collections
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -55,6 +64,9 @@ TRACE_ENV = "DPX_TRACE"
 RING_ENV = "DPX_TRACE_RING"
 #: Env var: span sink path (default: the DPX_METRICS_LOG stream).
 LOG_ENV = "DPX_TRACE_LOG"
+#: Prefix of the ``torch.profiler`` range each span opens while a
+#: profiler records.
+RANGE_PREFIX = "dpx."
 
 # ---------------------------------------------------------------------------
 # wall anchor: ONE (wall, perf_counter_ns, monotonic) triple per process.
@@ -218,6 +230,24 @@ def _stack() -> List["_Span"]:
     return s
 
 
+_PROFILER = "torch.autograd.profiler"
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` is recording: the module flag its
+    ``profile`` sets, read only when torch is already loaded (this
+    module imports with the stdlib alone)."""
+    mod = sys.modules.get(_PROFILER)
+    return mod is not None and mod._is_profiler_enabled
+
+
+def _open_range(name: str):
+    """An entered ``record_function`` range ``dpx.<name>``."""
+    rf = sys.modules[_PROFILER].record_function(RANGE_PREFIX + name)
+    rf.__enter__()
+    return rf
+
+
 # ---------------------------------------------------------------------------
 # recording
 # ---------------------------------------------------------------------------
@@ -285,9 +315,29 @@ class _NullSpan:
 _NULL = _NullSpan()
 
 
+class _RangeSpan(_NullSpan):
+    """``DPX_TRACE`` off while a profiler records: the ``dpx.`` range
+    alone, no record."""
+
+    __slots__ = ("name", "_rf")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._rf = None
+
+    def __enter__(self):
+        self._rf = _open_range(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        self._rf.__exit__(*exc)
+        return False
+
+
 class _Span:
     __slots__ = ("name", "trace_id", "span_id", "parent_id", "tid",
-                 "attrs", "events", "t0_ns", "t1_ns", "_st", "_ambient")
+                 "attrs", "events", "t0_ns", "t1_ns", "_st", "_ambient",
+                 "_rf")
 
     def __init__(self, st: _State, name: str, trace_id: Optional[str],
                  parent_id: Optional[str], tid: Optional[str],
@@ -303,8 +353,11 @@ class _Span:
         self.t0_ns = 0
         self.t1_ns = 0
         self._ambient = False
+        self._rf = None
 
     def __enter__(self) -> "_Span":
+        if _profiling():
+            self._rf = _open_range(self.name)
         stack = _stack()
         if self.parent_id is None and stack:
             top = stack[-1]
@@ -318,6 +371,9 @@ class _Span:
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         self.t1_ns = time.perf_counter_ns()
+        if self._rf is not None:
+            self._rf.__exit__(exc_type, exc, tb)
+            self._rf = None
         if self._ambient:
             stack = _stack()
             if stack and stack[-1] is self:
@@ -360,14 +416,15 @@ def span(name: str, *, trace_id: Optional[str] = None,
          **attrs):
     """Open a timed span as a context manager.
 
-    Disabled tracing returns a shared no-op (one global read + one
-    ``if``: the near-zero-overhead contract).
+    Disabled tracing returns a shared no-op while no profiler records
+    (a global read and a flag read: the near-zero-overhead contract),
+    else the span's ``dpx.<name>`` profiler range alone.
     ``trace_id``/``parent_id`` default to the ambient per-thread span
     stack; pass them explicitly to stitch lineage across threads (the
     serve request lifecycle does)."""
     st = _state if _state is not None else _init()
     if not st.enabled:
-        return _NULL
+        return _RangeSpan(name) if _profiling() else _NULL
     return _Span(st, name, trace_id, parent_id, tid, attrs)
 
 

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from ..comm.collectives import all_gather, sync_params
+from ..obs import trace as _dpxtrace
 from ..optim import Optimizer
 from ..runtime import context
 from ..runtime import env as _env
@@ -88,12 +89,23 @@ def mp_cast_params(model: nn.Module, only=None) -> Iterator[nn.Module]:
             mod._parameters[name] = p
 
 
+def _no_span(name: str, **attrs):
+    return contextlib.nullcontext()
+
+
 def _average_grads(grads, world: int, group=None) -> None:
+    """The DDP engine's exchange: :func:`_flat_mean` with its
+    ``all_reduce`` in the dpxtrace span ``comm:allreduce``."""
+    _flat_mean(grads, world, group, _dpxtrace.span)
+
+
+def _flat_mean(grads, world: int, group=None, span=_no_span) -> None:
     """Average ``grads`` over the ranks (of ``group``, default all) in
     place: one float32 flat bucket, one ``all_reduce`` (sum), divided by
-    ``world``."""
+    ``world``; ``span`` wraps the ``all_reduce``."""
     flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
-    torch.distributed.all_reduce(flat, group=group)
+    with span("comm:allreduce", bytes=flat.nbytes):
+        torch.distributed.all_reduce(flat, group=group)
     flat /= world
     _scatter_flat(flat, grads)
 
@@ -115,27 +127,35 @@ def _wire_format(grad_reduce: str) -> str:
 
 
 def forward_backward(loss_fn: Callable, mixed_precision: str,
-                     cast: Optional[Callable] = None) -> Callable:
+                     cast: Optional[Callable] = None,
+                     phases: bool = False) -> Callable:
     """``run(model, batch) -> (params, grads, loss, metrics)``: clears
     the gradients, runs the forward (on the bf16 casts under
     ``mixed_precision="bf16"``; ``cast(model)``, a context manager, in
     place of :func:`mp_cast_params` where given) and the backward.
     ``grads`` lines up with ``params`` (``model.parameters()``): a zero
     tensor for a trainable parameter the loss does not reach, ``None``
-    for a frozen one."""
+    for a frozen one. ``phases`` wraps the two in dpxtrace spans,
+    ``forward`` (the casts through the loss) and ``backward`` (the
+    backward and the gradient list)."""
     if cast is None or mixed_precision != "bf16":
         cast = mp_cast_params if mixed_precision == "bf16" \
             else contextlib.nullcontext
+    span = _dpxtrace.span if phases else _no_span
 
     def run(model, batch):
         params = list(model.parameters())
         for p in params:
             p.grad = None
-        with cast(model):
-            loss, metrics = loss_fn(model, batch)
-            loss.backward()
-        grads = [(p.grad if p.grad is not None else torch.zeros_like(p))
-                 if p.requires_grad else None for p in params]
+        with contextlib.ExitStack() as casts:
+            with span("forward"):
+                casts.enter_context(cast(model))
+                loss, metrics = loss_fn(model, batch)
+            with span("backward"):
+                loss.backward()
+                grads = [(p.grad if p.grad is not None
+                          else torch.zeros_like(p))
+                         if p.requires_grad else None for p in params]
         return params, grads, loss, metrics
 
     return run
@@ -226,10 +246,16 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                      on_bucket_ready=on_bucket_ready, donate=donate)
 
 
-def _make_dist_train_step(fb: Callable, optimizer: Optimizer,
+def _make_dist_train_step(loss_fn: Callable, mixed_precision: str,
+                          optimizer: Optimizer,
                           grad_reduce: str) -> Callable:
     """The torch.distributed door of :func:`make_train_step`: the
-    front door's DDP engine (``specs=None``)."""
+    front door's DDP engine (``specs=None``). Each call is a dpxtrace
+    span ``dp_step`` (``wire``, ``world``) over ``forward``,
+    ``backward``, at world > 1 ``grad_reduce`` (``bytes`` of the flat
+    float32 bucket; the exact mean's ``comm:allreduce`` inside) and
+    ``update``: with a profiler recording, ``dpx.`` ranges on the
+    device trace's clock."""
     from ..comm import host_backend as _hb
     from ..comm import primitives as prim
     from ..comm.wire import WidthChooser
@@ -242,12 +268,17 @@ def _make_dist_train_step(fb: Callable, optimizer: Optimizer,
         bits = 8 if adaptive else width
     chooser = WidthChooser() if adaptive else None
     block = prim.QUANT_BLOCK
+    fb = forward_backward(loss_fn, mixed_precision, phases=True)
+
+    def padded(n: int) -> int:
+        """A gradient's length in the quantized bucket: whole blocks."""
+        return n + (-n) % block
 
     def reduce_quantized(grads, width):
         pieces = []
         for g in grads:
             f = g.reshape(-1).to(torch.float32)
-            pad = (-f.numel()) % block
+            pad = padded(f.numel()) - f.numel()
             pieces.append(torch.nn.functional.pad(f, (0, pad)) if pad
                           else f)
         red = prim.quantized_pmean(torch.cat(pieces), bits=width)
@@ -255,28 +286,41 @@ def _make_dist_train_step(fb: Callable, optimizer: Optimizer,
         for g in grads:
             n = g.numel()
             out.append(red[off:off + n])
-            off += n + ((-n) % block)
+            off += padded(n)
         for g, r in zip(grads, out):
             g.copy_(r.view_as(g))
         return out
 
+    def bucket_bytes(live) -> int:
+        """The float32 bucket's bytes, for the span's record."""
+        size = padded if grad_reduce != "mean" else int
+        return 4 * sum(size(g.numel()) for g in live)
+
     def step(model, opt_state, batch) -> StepOutput:
-        params, grads, loss, metrics = fb(model, batch)
         world = context.get_world_size()
-        live = [g for g in grads if g is not None]
-        if world > 1 and live:
-            if grad_reduce == "mean":
-                _average_grads(live, world)
-            else:
-                width = chooser.width if chooser is not None else bits
-                reduced = reduce_quantized(live, width)
-                if chooser is not None:
-                    # the statistic of the unpadded reduced gradients,
-                    # the same input the host door's chooser reads
-                    chooser.observe_frac(float(block_outlier_frac(
-                        torch.cat(reduced), block)))
-        opt_state = optimizer.update(grads, opt_state, params)
-        return step_output(model, opt_state, loss, metrics)
+        with _dpxtrace.span("dp_step", wire=grad_reduce, world=world):
+            params, grads, loss, metrics = fb(model, batch)
+            live = [g for g in grads if g is not None]
+            if world > 1 and live:
+                # the bytes only where a record is written
+                attrs = {"bytes": bucket_bytes(live)} \
+                    if _dpxtrace.enabled() else {}
+                with _dpxtrace.span("grad_reduce", **attrs):
+                    if grad_reduce == "mean":
+                        _average_grads(live, world)
+                    else:
+                        width = chooser.width if chooser is not None \
+                            else bits
+                        reduced = reduce_quantized(live, width)
+                        if chooser is not None:
+                            # the statistic of the unpadded reduced
+                            # gradients, the same input the host door's
+                            # chooser reads
+                            chooser.observe_frac(float(block_outlier_frac(
+                                torch.cat(reduced), block)))
+            with _dpxtrace.span("update"):
+                opt_state = optimizer.update(grads, opt_state, params)
+            return step_output(model, opt_state, loss, metrics)
 
     step.width_chooser = chooser
     step.wire_bits = bits

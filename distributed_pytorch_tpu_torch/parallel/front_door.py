@@ -506,8 +506,7 @@ def _build_stacked_dp(step, loss_fn, optimizer, *, wire, mp):
     ``adaptive`` the program key is the width the chooser picked."""
     from .data_parallel import _make_dist_train_step
 
-    engine = _make_dist_train_step(forward_backward(loss_fn, mp),
-                                   optimizer, wire)
+    engine = _make_dist_train_step(loss_fn, mp, optimizer, wire)
     step.width_chooser = chooser = engine.width_chooser
     mesh = _group_mesh()
     if mesh is not None:

@@ -53,7 +53,7 @@ from ..convert import spec_placements
 from ..optim import Optimizer, Q8LogMoment, Q8Moment, q8_base
 from ..runtime import env as _env
 from ..runtime.context import DATA_AXIS
-from .data_parallel import (MP_POLICIES, _average_grads, forward_backward,
+from .data_parallel import (MP_POLICIES, _flat_mean, forward_backward,
                             mp_cast_params, step_output)
 from .tensor import (P, jax_layout, replicated_specs, spec_axes,
                      specs_by_param, sub_mesh, tree_leaves, tree_map)
@@ -390,8 +390,7 @@ def _ladder_step(loss_fn, optimizer, mesh, param_specs, state_specs,
                                 axis, mp)
     if not _sharded(state_specs, axis):
         from .data_parallel import _make_dist_train_step
-        return _make_dist_train_step(forward_backward(loss_fn, mp),
-                                     optimizer, "mean")
+        return _make_dist_train_step(loss_fn, mp, optimizer, "mean")
     if _same(grad_specs, state_specs):
         stage = 2
     elif _same(grad_specs, param_specs):
@@ -424,8 +423,8 @@ def _make_zero3_step(loss_fn, optimizer, mesh, param_specs, axis, mp):
         small = [g for p, g in zip(params, grads)
                  if g is not None and id(p) in layout.ignored]
         if world > 1 and small:
-            _average_grads([g.to_local() if _is_dtensor(g) else g
-                            for g in small], world, dp.get_group())
+            _flat_mean([g.to_local() if _is_dtensor(g) else g
+                        for g in small], world, dp.get_group())
         opt_state = optimizer.update(_zero3_views(model, layout, grads),
                                      opt_state,
                                      _zero3_views(model, layout))
@@ -467,14 +466,14 @@ def _make_zero12_step(loss_fn, optimizer, mesh, state_specs, axis, mp,
         if world == 1 or not live:
             return views(placements, grads)
         if stage == 1:
-            _average_grads(live, world, group)
+            _flat_mean(live, world, group)
             return views(placements, grads)
         shard = [i for i, (g, pl) in enumerate(zip(grads, placements))
                  if g is not None and pl[0].is_shard()]
         rep = [g for g, pl in zip(grads, placements)
                if g is not None and not pl[0].is_shard()]
         if rep:
-            _average_grads(rep, world, group)
+            _flat_mean(rep, world, group)
         out = views(placements, grads)
         if shard:
             rows = [torch.cat([grads[i].chunk(world, placements[i][0].dim)[r]

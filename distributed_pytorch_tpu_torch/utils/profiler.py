@@ -116,17 +116,16 @@ class CommStats:
 
     @contextlib.contextmanager
     def timed(self, op: str, nbytes: int, hidden: bool = False):
-        """Time a collective, record its wire bytes, and name it on the
-        trace timeline (``comm:<op>``); with ``DPX_TRACE`` on also a
-        dpxtrace span of that name (obs/trace.py), which puts every comm
-        op on the cross-rank timeline with its overlapped-vs-exposed
-        attribution (``hidden``)."""
+        """Time a collective, record its wire bytes, and open the
+        dpxtrace span ``comm:<op>`` (obs/trace.py): with ``DPX_TRACE`` on
+        a record that puts every comm op on the cross-rank timeline with
+        its overlapped-vs-exposed attribution (``hidden``), and while a
+        profiler records the range ``dpx.comm:<op>`` on its timeline."""
         t0 = time.perf_counter()
         try:
-            with annotate(f"comm:{op}"):
-                with _dpxtrace.span(f"comm:{op}", bytes=int(nbytes),
-                                    hidden=hidden):
-                    yield
+            with _dpxtrace.span(f"comm:{op}", bytes=int(nbytes),
+                                hidden=hidden):
+                yield
         finally:
             self.record(op, nbytes, time.perf_counter() - t0,
                         hidden=hidden)

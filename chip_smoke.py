@@ -9,7 +9,8 @@ non-zero at once:
 
 1. device   — card name and power limit, TF32 off for the reference math;
 2. build    — compiles every kernel source of the serving and training
-              paths from ``csrc/`` (one nvcc per source, all at once),
+              paths from ``csrc/`` (one nvcc per source, all at once;
+              the fused AdamW's too),
               then reads each kernel's registers and spills from ptxas
               and its HGMMA (wgmma) and UTMALDG (TMA load) instruction
               counts from ``cuobjdump --dump-sass``; the bf16 forward,
@@ -55,9 +56,11 @@ non-zero at once:
               adamw(3e-4), plain cross-entropy, random weights from a
               seed) on one fixed token batch: 2 warm-up and 10 timed
               steps, step time, tokens/s and MFU, 12/12/12 kernel launches
-              per step, falling losses within 2% per step of dense
-              attention, and ``remat="full"`` (24 forward launches per
-              step, the same first loss);
+              per step, one fused AdamW launch per step updating every
+              parameter and none left to the ``_foreach`` chain, falling
+              losses within 2% per step of dense attention, and
+              ``remat="full"`` (24 forward launches per step, the same
+              first loss);
 10. train_breakdown — one step's device time by kernel class and its
               device-idle share;
 11. ddp_api — ``launch`` on the card must run the worker at world >= 1
@@ -223,7 +226,9 @@ non-zero at once:
               and ``make_zero1_train_step``, 1 warm-up and 5 timed steps
               each: step ms, peak memory, one step's device busy share,
               the optimizer's host ms per step (DTensor dispatch), 12/12/12
-              flash launches per step, finite falling losses within 2e-3
+              flash launches per step, the fused AdamW's elements (none
+              left to the ``_foreach`` chain on the DTensor rungs'
+              local shards), finite falling losses within 2e-3
               relative of ``train``'s step for step, DTensor optimizer
               state on every rung; then ``vocab_parallel_cross_entropy``
               at tp = 1 on seeded (8, 1024, 32000) logits against the
@@ -338,9 +343,24 @@ non-zero at once:
               CPU ranks (the ring over loopback);
               ``tools/dpxlint_torch.py`` and ``tools/dpxverify_torch.py``
               exit 0 over the port.
+36. adamw (right after ``build``, which reports the kernel's registers
+              and spills for its four dtype pairs) — the fused AdamW kernel
+              (``csrc/adamw_fused.cu``) at GPT-2 XL's parameter list
+              (580 tensors, 1,557,611,200 float32 parameters, the
+              benchmark's gpt2-xl cells) and FLAGSHIP's (149 tensors,
+              bfloat16 parameters and gradients, ``train``'s): one step
+              from a seeded state equal bit for bit to the plain version
+              (``adamw_reference``, tensor by tensor) and within 4 ulps
+              of the ``_foreach`` chain it replaces (elements that
+              differ counted); then device ms per step of the kernel,
+              the chain and ``torch.optim.AdamW(fused=True)`` (a
+              yardstick only: bfloat16 moments for bfloat16 parameters)
+              beside the kernel's byte bound (28 bytes a float32
+              parameter at the card's HBM rate).
 
-Then the ``kernels`` line (each kernel's design, ``wgmma+tma`` or
-``scalar_fma``, as its bf16 path runs it; the forward at both shapes and
+Then the ``kernels`` line (each flash kernel's design, ``wgmma+tma`` or
+``scalar_fma``, as its bf16 path runs it; the fused AdamW's row at both
+lists, with its launches in ``train`` and its elements in ``fsdp``; the forward at both shapes and
 its launches in ``serve_kvq``, ``serve_spec``, ``serve_int8``,
 ``serve_disagg`` and ``serve_fleet``; every row's launches per step in
 each ``host_ddp``, ``fsdp`` and ``front_door`` arm, and in ``obs``,
@@ -383,6 +403,10 @@ KERNELS = {
                                 JAX_FLASH + ":326"),
     "flash_attention_bwd_dq": (CSRC + "flash_attention_bwd.cu",
                                JAX_FLASH + ":371"),
+    # no TPU kernel: XLA fuses the JAX package's jnp adamw
+    "adamw_multi_tensor_apply": (CSRC + "adamw_fused.cu",
+                                 "distributed_pytorch_tpu/optim/"
+                                 "__init__.py:49"),
 }
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # backward, bf16: ||got - ref|| / ||ref|| of every 64-row tile (see
@@ -507,11 +531,13 @@ def sass_counts(lib: str) -> dict:
 
 
 def phase_build(_build, tflash):
-    """Build both sources in parallel; report and check each kernel's
+    """Build every source in parallel; report and check each kernel's
     registers, spills and HGMMA / UTMALDG counts. A library left by an
     earlier run is built again, so ptxas reports on every kernel."""
+    from distributed_pytorch_tpu_torch.ops import adamw_fused
     t0 = time.perf_counter()
-    sources = (tflash.KERNEL_SOURCE, tflash.BWD_KERNEL_SOURCE)
+    sources = (tflash.KERNEL_SOURCE, tflash.BWD_KERNEL_SOURCE,
+               adamw_fused.KERNEL_SOURCE)
     for src in sources:
         _build.library_path(src).unlink(missing_ok=True)
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -536,7 +562,154 @@ def phase_build(_build, tflash):
                 fail(f"build: {name} has no HGMMA or no UTMALDG: {rec}")
             if rec.get("spill_stores", 0) or rec.get("spill_loads", 0):
                 fail(f"build: {name} spills: {rec}")
+    # the fused AdamW's registers and spills are reported, not held: its
+    # float32 instantiation spills 4 bytes at 40 registers, and the
+    # kernel runs at 85% of the card's memory rate all the same
+    adamw = [k for k in kernels if ADAMW_KERNEL in k]
+    if len(adamw) != 4:
+        fail(f"build: {len(adamw)} fused AdamW kernels in the ptxas "
+             "report, expected one per dtype pair (4)")
     return kernels
+
+
+# the fused AdamW kernel's phase: GPT-2 XL's list (n_embd, n_layer,
+# vocab, positions as GPT-2 publishes them; the benchmark's gpt2-xl cells
+# keep float32 masters) and FLAGSHIP's (train's model, bfloat16)
+ADAMW_KERNEL = "adamw_multi_tensor_apply"
+GPT2_XL = (1600, 48, 50257, 1024)
+ADAMW_HYPER = dict(lr=TRAIN_LR, b1=0.9, b2=0.999, eps=1e-8,
+                   weight_decay=0.01)
+ADAMW_STEP = 3          # the step whose bias corrections are checked
+ADAMW_ITERS = 5
+ADAMW_ULPS = 4          # kernel against the _foreach chain
+# per element: mu 3, nu 4, decay 1, mu/c1*lr 2, sqrt(nu/c2)+eps 3,
+# the quotient and the difference 2
+ADAMW_FLOPS = 15
+
+
+def gpt2_shapes(n_embd, n_layer, vocab, positions):
+    """GPT-2's parameter shapes in the port's order (tied embeddings)."""
+    c = n_embd
+    block = [(c,), (c,), (c, 3 * c), (3 * c,), (c, c), (c,), (c,), (c,),
+             (c, 4 * c), (4 * c,), (4 * c, c), (c,)]
+    return [(vocab, c), (positions, c)] + block * n_layer + [(c,), (c,)]
+
+
+def adamw_lists(torch, shapes, dtype, seed, device):
+    """Seeded (p, g, mu, nu) lists of ``shapes`` on the card: p and g in
+    ``dtype``, the moments float32 and nonzero (nu positive), a state
+    some steps into training."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(scale, dt=torch.float32, square=False):
+        out = []
+        for shape in shapes:
+            t = torch.randn(shape, device=device, generator=gen).mul_(scale)
+            out.append((t.square_() if square else t).to(dt))
+        return out
+    return (draw(0.02, dtype), draw(1e-2, dtype), draw(1e-3),
+            draw(1e-3, square=True))
+
+
+def bit_gap(torch, got, want):
+    """(elements that differ, the largest distance in units in the last
+    place) of two lists of float32 or bfloat16 tensors (the distance of
+    their bit patterns as integers: exact between values of one sign)."""
+    n, worst = 0, 0
+    for a, b in zip(got, want):
+        ints = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        d = (a.view(ints).long() - b.view(ints).long()).abs()
+        n += int((d != 0).sum())
+        worst = max(worst, int(d.max()) if d.numel() else 0)
+    return n, worst
+
+
+def adamw_case(torch, name, shapes, dtype, device):
+    """One list's check and times (see the ``adamw`` phase)."""
+    from distributed_pytorch_tpu_torch.optim import _adamw_foreach
+    from distributed_pytorch_tpu_torch.ops import adamw_fused
+    t = np.float32(ADAMW_STEP)
+    kw = dict(ADAMW_HYPER,
+              c1=float(np.float32(1) - np.float32(ADAMW_HYPER["b1"]) ** t),
+              c2=float(np.float32(1) - np.float32(ADAMW_HYPER["b2"]) ** t))
+    n = sum(int(np.prod(sh)) for sh in shapes)
+    p, g, mu, nu = adamw_lists(torch, shapes, dtype, 1, device)
+
+    def fused_step():
+        groups, back, rest = adamw_fused.split(g, p, mu, nu)
+        if back or rest[0]:
+            fail(f"adamw {name}: the list did not go to the kernel whole")
+        adamw_fused.launch(groups, back, **kw)
+
+    # the plain version, tensor by tensor, from the same state
+    ref = [[x.clone() for x in xs] for xs in (p, mu, nu)]
+    adamw_fused.reset_launch_counts()
+    fused_step()
+    launches = adamw_fused.LAUNCHES[ADAMW_KERNEL]
+    for rp, gg, rm, rv in zip(*ref[:1], g, *ref[1:]):
+        adamw_fused.adamw_reference(rp, gg, rm, rv, **kw)
+    torch.cuda.synchronize()
+    ref_gap = {k: bit_gap(torch, a, b) for k, a, b in
+               zip(("p", "mu", "nu"), (p, mu, nu), ref)}
+    del ref
+    # the _foreach chain from the same state (drawn again)
+    cp, cg, cm, cv = adamw_lists(torch, shapes, dtype, 1, device)
+    del cg
+    _adamw_foreach(g, cp, cm, cv, **kw)
+    torch.cuda.synchronize()
+    chain_gap = {k: bit_gap(torch, a, b) for k, a, b in
+                 zip(("p", "mu", "nu"), (p, mu, nu), (cp, cm, cv))}
+    # device ms per step: the kernel, the chain, torch's fused AdamW
+    ms = device_ms(torch, fused_step, ADAMW_ITERS)
+    plain_ms = device_ms(torch, lambda: _adamw_foreach(g, cp, cm, cv, **kw),
+                         ADAMW_ITERS)
+    del cp, cm, cv
+    torch.cuda.empty_cache()
+    for x, gg in zip(p, g):
+        x.requires_grad_(True)
+        x.grad = gg
+    lib = torch.optim.AdamW(p, lr=kw["lr"], betas=(kw["b1"], kw["b2"]),
+                            eps=kw["eps"], weight_decay=kw["weight_decay"],
+                            fused=True)
+    library_ms = device_ms(torch, lib.step, ADAMW_ITERS)
+    del lib, p, g, mu, nu
+    torch.cuda.empty_cache()
+    size = torch.finfo(dtype).bits // 8
+    nbytes = n * (3 * size + 16)   # p and g read, p written; mu, nu
+    bound_ms, bound_by = bound(torch, ADAMW_FLOPS * n, nbytes)
+    rec = dict(tensors=len(shapes), params=n, dtype=str(dtype)[6:],
+               launches=launches, bytes=nbytes, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+               share_of_bound=bound_ms / ms, plain_ratio=plain_ms / ms,
+               library_ratio=ms / library_ms,
+               vs_reference={k: dict(differ=d, max_ulps=u)
+                             for k, (d, u) in ref_gap.items()},
+               vs_chain={k: dict(differ=d, max_ulps=u)
+                         for k, (d, u) in chain_gap.items()})
+    if any(d for d, _ in ref_gap.values()):
+        fail(f"adamw {name}: the kernel differs from its plain version: "
+             f"{rec['vs_reference']}")
+    if any(u > ADAMW_ULPS for _, u in chain_gap.values()):
+        fail(f"adamw {name}: the kernel differs from the _foreach chain "
+             f"by more than {ADAMW_ULPS} ulps: {rec['vs_chain']}")
+    return rec
+
+
+def phase_adamw(torch, port, device):
+    """The fused AdamW kernel at GPT-2 XL's and FLAGSHIP's lists: a
+    bitwise check against its plain version, a check against the chain,
+    and its times beside the chain's, torch's and its bound."""
+    flagship = port.TransformerLM(dtype=torch.bfloat16, device="meta",
+                                  **TRAIN)
+    cases = {"gpt2_xl": (gpt2_shapes(*GPT2_XL), torch.float32),
+             "flagship": ([tuple(p.shape) for p in flagship.parameters()],
+                          torch.bfloat16)}
+    del flagship
+    out = {name: adamw_case(torch, name, shapes, dtype, device)
+           for name, (shapes, dtype) in cases.items()}
+    emit(phase="adamw", card=torch.cuda.get_device_name(0),
+         hyper=ADAMW_HYPER, step=ADAMW_STEP, iters=ADAMW_ITERS, **out)
+    return out
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -1093,6 +1266,7 @@ def phase_train_check(torch, port, tflash, device):
 def phase_train(torch, port, tflash, device):
     """The FLAGSHIP train step through make_train_step; returns what the
     breakdown and the kernels line read."""
+    from distributed_pytorch_tpu_torch.ops import adamw_fused
     from distributed_pytorch_tpu_torch.optim import adamw
     from distributed_pytorch_tpu_torch.parallel import make_train_step
 
@@ -1120,6 +1294,7 @@ def phase_train(torch, port, tflash, device):
     run = trainer(model)
 
     tflash.reset_launch_counts()
+    adamw_fused.reset_launch_counts()
     losses = [run() for _ in range(WARM_STEPS)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1127,12 +1302,20 @@ def phase_train(torch, port, tflash, device):
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TIMED_STEPS
     launches = dict(tflash.LAUNCHES)
+    adamw_launches = adamw_fused.LAUNCHES[ADAMW_KERNEL]
+    adamw_elements = dict(adamw_fused.ELEMENTS)
     losses = torch.cat(losses).tolist()
     n_steps = WARM_STEPS + TIMED_STEPS
     per_step = {k: v / n_steps for k, v in launches.items()}
     if any(n != TRAIN["n_layers"] for n in per_step.values()):
         fail(f"train: launches per step {per_step}, expected "
              f"{TRAIN['n_layers']} of each kernel")
+    n_params = sum(p.numel() for p in model.parameters())
+    if adamw_launches != n_steps or adamw_elements != {
+            "fused": n_steps * n_params, "foreach": 0}:
+        fail(f"train: fused AdamW launches {adamw_launches} and elements "
+             f"{adamw_elements} over {n_steps} steps of {n_params} "
+             "parameters, expected one launch a step and every parameter")
     if not all(np.isfinite(losses)):
         fail(f"train: non-finite losses {losses}")
     if not losses[-1] < losses[WARM_STEPS]:
@@ -1180,12 +1363,14 @@ def phase_train(torch, port, tflash, device):
          step_ms=step_s * 1e3, tokens_per_sec=tokens_per_step / step_s,
          flops_per_step=flops, mfu=flops / step_s / peak_flops,
          peak_flops=peak_flops, launches=launches,
-         launches_per_step=per_step, losses=losses,
+         launches_per_step=per_step, adamw_launches=adamw_launches,
+         adamw_elements=adamw_elements, losses=losses,
          dense_losses=dense_losses, max_rel_loss_diff_vs_dense=max(rel),
          remat_full_losses=remat_losses,
          remat_full_launches_per_step=remat_per_step,
          remat_full_first_loss_diff=remat_diff,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    launches[ADAMW_KERNEL] = adamw_launches
     return run, step_s * 1e3, launches, losses
 
 
@@ -1241,6 +1426,7 @@ def fsdp_arm(torch, port, tflash, device, make_step, tokens):
     """1 warm-up and FSDP_TIMED_STEPS timed steps of FLAGSHIP (``train``'s
     seeded weights) through ``make_step(loss_fn, optimizer, model)``: what
     the phase prints about the arm."""
+    from distributed_pytorch_tpu_torch.ops import adamw_fused
     from distributed_pytorch_tpu_torch.optim import adamw
     model = port.TransformerLM(
         dtype=torch.bfloat16, device=device,
@@ -1259,6 +1445,7 @@ def fsdp_arm(torch, port, tflash, device, make_step, tokens):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tflash.reset_launch_counts()
+    adamw_fused.reset_launch_counts()
     losses = [run()]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1267,12 +1454,16 @@ def fsdp_arm(torch, port, tflash, device, make_step, tokens):
     step_ms = (time.perf_counter() - t0) / FSDP_TIMED_STEPS * 1e3
     n = 1 + FSDP_TIMED_STEPS
     per_step = {k: v / n for k, v in tflash.LAUNCHES.items()}
+    adamw_elements = dict(adamw_fused.ELEMENTS)
+    n_params = sum(p.numel() for p in model.parameters())
     peak = torch.cuda.max_memory_allocated() / 1e9
     busy = device_busy_ms(torch, run)
     rec = dict(step_ms=step_ms, peak_memory_gb=peak, device_busy_ms=busy,
                device_busy_share=(busy / step_ms if busy else None),
                opt_host_ms_per_step=1e3 * sum(opt_s[1:n]) / (n - 1),
                launches_per_step=per_step,
+               adamw_elements=adamw_elements,
+               adamw_want={"fused": n * n_params, "foreach": 0},
                losses=torch.cat(losses).float().tolist())
     state_types = sorted({type(t).__name__ for t in state[0].mu})
     rec["state_types"] = state_types
@@ -1374,6 +1565,10 @@ def phase_fsdp(torch, port, tflash, device, train_losses, train_step_ms):
         if not rel <= FSDP_LOSS_RTOL:
             fail(f"fsdp {name}: losses {ls} vs train's {ref}: {rel} > "
                  f"{FSDP_LOSS_RTOL}")
+    for name, rec in arms.items():
+        if rec["adamw_elements"] != rec["adamw_want"]:
+            fail(f"fsdp {name}: fused AdamW elements "
+                 f"{rec['adamw_elements']}, expected {rec['adamw_want']}")
     for name in ("zero1", "zero2", "zero3"):
         if arms[name]["state_types"] != ["DTensor"]:
             fail(f"fsdp {name}: optimizer state {arms[name]['state_types']}"
@@ -4685,7 +4880,8 @@ def phase_faults(torch, tflash, serving, uninterrupted):
     resumed = {x["step"]: x["loss"] for x in losses[-n:]}
     got = [resumed.get(s) for s in range(start, end)]
     want = uninterrupted[start:end]
-    counts = {name: int(done[f"kernels.{name}.launches"]) for name in KERNELS}
+    counts = {name: int(done[f"kernels.{name}.launches"]) for name in KERNELS
+              if name != ADAMW_KERNEL}
     per_step = {name: (c - (FLAGSHIP["n_layers"] * done["train.eval_batches"]
                             if name == "flash_attention_fwd" else 0)) / n
                 for name, c in counts.items()}
@@ -5046,6 +5242,7 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     phase_build(_build, tflash)
+    adamw_timing = phase_adamw(torch, port, device)
 
     worst, timing = phase_kernel(torch, tflash, device)
     bwd_worst, bwd_timing = phase_bwd_kernel(torch, tflash, device)
@@ -5189,6 +5386,20 @@ def main() -> int:
         row["faults_launches"] = {case: counts.get(name, 0)
                                   for case, counts in faults_launches.items()}
         row["perfbench_launches_per_step"] = perfbench_launches[name]
+    # the fused AdamW at GPT-2 XL's float32 list (ms, plain_ms: the
+    # _foreach chain, library_ms: torch's fused AdamW) and at FLAGSHIP's
+    # bfloat16 one (flagship_*); its launches are train's
+    xl, fl = adamw_timing["gpt2_xl"], adamw_timing["flagship"]
+    rows[ADAMW_KERNEL] = dict(
+        max_ulps_vs_chain=max(v["max_ulps"] for v in xl["vs_chain"].values()),
+        ms=xl["ms"], plain_ms=xl["plain_ms"], bound_ms=xl["bound_ms"],
+        bound_by=xl["bound_by"], library_ms=xl["library_ms"],
+        library_ratio=xl["library_ratio"],
+        share_of_bound=xl["share_of_bound"],
+        **{f"flagship_{k}": fl[k] for k in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "library_ratio",
+            "share_of_bound")},
+        design="persistent_multi_tensor")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=launches[name], **row)

@@ -9,7 +9,10 @@ writes the new parameters into ``params`` in place (PyTorch's habit;
 the JAX package returns a new tree) and returns the new state. A
 parameter whose gradient is ``None`` (a frozen one) is left as it is,
 and so is its state. The multi-tensor ``torch._foreach_*`` ops keep the
-update to a few launches per step on the card.
+update to a few launches per step on the card; ``adamw`` runs every
+CUDA tensor (a DTensor's local shard) through one hand-written kernel
+instead (``ops/adamw_fused.py``), one pass over memory with the same
+float32 arithmetic.
 
 ``torch.optim.AdamW`` is not used: with bfloat16 parameters it keeps
 bfloat16 moments and computes another update. Here the moments are
@@ -36,6 +39,8 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor import zeros as _dtensor_zeros
+
+from ..ops import adamw_fused as _adamw_fused
 
 Tensors = Sequence[torch.Tensor]
 
@@ -125,12 +130,39 @@ class AdamWState(NamedTuple):
     nu: List[torch.Tensor]     # float32 second moments
 
 
+def _adamw_foreach(grads, params, mu, nu, *, lr, b1, b2, eps, weight_decay,
+                   c1, c2) -> None:
+    """One AdamW step over the lists in place by ``torch._foreach_*``
+    ops, sixteen passes over memory: the path of CPU tensors, and the
+    fused kernel's yardstick on the card."""
+    gf = [g.to(torch.float32) for g in grads]
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, torch._foreach_mul(gf, 1 - b1))
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_add_(nu, torch._foreach_mul(
+        torch._foreach_mul(gf, gf), 1 - b2))
+    pf = torch._foreach_mul([p.to(torch.float32) for p in params],
+                            1.0 - lr * weight_decay)
+    upd = torch._foreach_div(mu, c1)
+    den = torch._foreach_div(nu, c2)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, eps)
+    torch._foreach_mul_(upd, lr)
+    torch._foreach_div_(upd, den)
+    torch._foreach_sub_(pf, upd)
+    _foreach_copy(params, pf)
+
+
 def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 0.01) -> Optimizer:
     """AdamW with torch's default hyperparameters: bias-corrected
     moments kept in float32, decoupled weight decay
     ``p * (1 - lr * wd)`` before the Adam step, the step computed in
-    float32 and cast back to each parameter's dtype."""
+    float32 and cast back to each parameter's dtype. A parameter on a
+    CUDA device (float32 or bfloat16, as its gradient; a DTensor's local
+    shard) is updated by the fused kernel of ``ops/adamw_fused.py``,
+    which repeats the ``_foreach`` chain's roundings on the card; a CPU
+    one by the chain."""
 
     def init(params):
         params = list(params)
@@ -148,22 +180,13 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         t = np.float32(step)
         c1 = float(np.float32(1.0) - np.float32(b1) ** t)
         c2 = float(np.float32(1.0) - np.float32(b2) ** t)
-        gf = [g.to(torch.float32) for g in grads]
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, torch._foreach_mul(gf, 1 - b1))
-        torch._foreach_mul_(nu, b2)
-        torch._foreach_add_(nu, torch._foreach_mul(
-            torch._foreach_mul(gf, gf), 1 - b2))
-        pf = torch._foreach_mul([p.to(torch.float32) for p in params],
-                                1.0 - lr * weight_decay)
-        upd = torch._foreach_div(mu, c1)
-        den = torch._foreach_div(nu, c2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, eps)
-        torch._foreach_mul_(upd, lr)
-        torch._foreach_div_(upd, den)
-        torch._foreach_sub_(pf, upd)
-        _foreach_copy(params, pf)
+        hyper = dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                     weight_decay=weight_decay, c1=c1, c2=c2)
+        fused, back, rest = _adamw_fused.split(grads, params, mu, nu)
+        _adamw_fused.launch(fused, back, **hyper)
+        if rest[0]:
+            _adamw_fused.count_foreach(rest[1])
+            _adamw_foreach(*rest, **hyper)
         return AdamWState(step=step, mu=state.mu, nu=state.nu)
 
     return Optimizer(init, update)
